@@ -1,0 +1,67 @@
+"""Decode instances shared by the port's decode tests (numpy only, so the
+card-side tests import no jax): a numpy copy of
+tests/test_sgs_decode.py's ``_random_instance`` and edge cases."""
+import numpy as np
+
+SHAPES = [(1, 1, 1, 32), (4, 7, 2, 64), (8, 20, 3, 256), (2, 33, 4, 100),
+          (3, 12, 1, 128)]
+
+
+def random_instance(rng, B, J, M, T, edge_density=0.15):
+    dur = rng.integers(0, max(T // 3, 1), (B, J)).astype(np.int32)
+    dur[:, ::5] = 0                       # zero-duration (masked) slots
+    dem = rng.uniform(0, 3, (B, J, M)).astype(np.float32)
+    dem[:, ::3, :] = 0.0                  # zero-demand tasks
+    prio = rng.normal(size=(B, J)).astype(np.float32)
+    prio[:, ::7] = -1e9                   # masked-slot sentinel priority
+    release = rng.integers(0, T, (J,)).astype(np.int32)
+    pred = np.zeros((J, J), bool)
+    for _ in range(int(edge_density * J * J) + J):
+        a, b = rng.integers(0, J, 2)
+        if a < b:
+            pred[b, a] = True             # DAG: edges point forward
+    caps = rng.uniform(0.5, 6, (M,)).astype(np.float32)
+    return [dur, dem, prio, release, pred, caps]
+
+
+def edge_cases():
+    """(args, T): a fully masked padding problem, all-equal priorities, and
+    releases past the horizon (the fallback placement path)."""
+    T, J, M = 64, 6, 2
+    z = np.zeros
+    masked = [z((2, J), np.int32), z((2, J, M), np.float32),
+              np.full((2, J), -1e9, np.float32), z((J,), np.int32),
+              z((J, J), bool), np.ones((M,), np.float32)]
+    rng = np.random.default_rng(1)
+    dur = rng.integers(1, 8, (3, J)).astype(np.int32)
+    dem = rng.uniform(0, 2, (3, J, M)).astype(np.float32)
+    ties = [dur, dem, z((3, J), np.float32), z((J,), np.int32),
+            z((J, J), bool), np.full((M,), 1.5, np.float32)]
+    late = [dur, dem, rng.normal(size=(3, J)).astype(np.float32),
+            np.full((J,), T + 5, np.int32), z((J, J), bool),
+            np.full((M,), 0.1, np.float32)]
+    return [(masked, T), (ties, T), (late, T)]
+
+
+def grouped_instance(rng, G, rows, J, M, T):
+    """G instances sharing one caps vector, stacked into one grouped call:
+    returns (the per-group instances, the grouped arguments)."""
+    insts = [random_instance(rng, rows, J, M, T) for _ in range(G)]
+    caps = insts[0][5]
+    for inst in insts:
+        inst[5] = caps
+    stacked = [np.concatenate([i[k] for i in insts]) for k in range(3)]
+    return insts, stacked + [np.stack([i[3] for i in insts]),
+                             np.stack([i[4] for i in insts]), caps]
+
+
+def kernel_cases():
+    """(args, T) instances the CUDA kernel is held to on the card: the
+    random sweep, the edge cases, a grouped call at the isolated engine's
+    width, and one with more slots (J = 300) than the kernel has threads."""
+    rng = np.random.default_rng(7)
+    cases = [(random_instance(rng, *s), s[3]) for s in SHAPES]
+    cases += edge_cases()
+    cases.append((grouped_instance(rng, 4, 64, 16, 2, 256)[1], 256))
+    cases.append((grouped_instance(rng, 1, 32, 300, 2, 300)[1], 300))
+    return cases
