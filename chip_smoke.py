@@ -7,23 +7,36 @@ Run from the root of a checkout:
 
 Phases, each failing loudly (no phase's failure is caught):
 
-1. build  — compile the port's CUDA kernel (``src/repro_torch/kernels/csrc``)
+1. build  — compile the port's three CUDA kernels
+   (``src/repro_torch/kernels/csrc/*.cu``, one ``nvcc`` each, in parallel)
    from the checkout's sources and print ptxas' register/shared-memory
-   report;
-2. parity — the kernel against its plain PyTorch version on the card, bit
-   for bit: the instances of the decode tests (``tests/_decode_cases.py``:
-   the random sweep, the edge cases, grouped G > 1 calls, J above the
-   block's thread count), and a small end-to-end solve whose plans must
-   not depend on which of the two decodes ran;
+   report for each;
+2. parity — each kernel against its plain PyTorch version on the card:
+   ``sgs_decode`` bit for bit on the instances of the decode tests
+   (``tests/_decode_cases.py``: the random sweep, the edge cases, grouped
+   G > 1 calls, J above the block's thread count); ``sched_violation`` on
+   the shapes of ``tests/test_kernels.py`` in float32 and bfloat16 (rtol
+   2e-5, atol 2e-4; zero at caps 1e9, never negative); ``usl_runtime`` on
+   that file's shapes in float32 and bfloat16 (rtol 1e-5, atol 1e-5); and
+   small vectorized and ising solves whose plans must not depend on which
+   of the two routes ran;
 3. main path — ``Agora(..., solver="vectorized", vec_cfg=VecConfig())``
    (256 chains, 600 sweeps, 256 time bins) serves an isolated session and
    a shared-capacity session (bucket 16: warm up, then two batches of 16
    DAGs each) and one quickstart ``agora.plan``. Every plan must validate,
    shared batches must have no joint violation, warm traffic must run no
-   new signature, and the kernel's launch counter must show each solve
-   went through it (iters + 1 launches at least). The decode inputs of one
-   sweep of each session are captured, checked against the plain version
-   and timed.
+   new signature, and the decode kernel's launch counter must show each
+   solve went through it (iters + 1 launches at least);
+4. ising path — ``Agora(..., solver="ising")`` at ``IsingConfig()``
+   defaults (512 chains, 1500 steps, 256 time bins) serves an isolated
+   session (warm up, then one batch of 16 DAGs, one solve per DAG), a
+   shared-capacity session (16 tenants released at t = 0: one joint
+   problem) and one quickstart plan, with the same checks; the
+   ``sched_violation`` kernel must have run iters + 1 times per solve.
+
+The inputs of one kernel call of each session are captured, checked
+against the plain version and timed; ``usl_runtime``, which no path
+calls, is timed on a grid of 4096 tasks x 256 configurations.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and, as the last line, {"ok": true, "device": {...}}. Exits
@@ -41,8 +54,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sgs_decode.cu"
-TPU_KERNEL = "src/repro/kernels/sgs_decode.py:39"
+CSRC = "src/repro_torch/kernels/csrc"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "sgs_decode": (f"{CSRC}/sgs_decode.cu",
+                   "src/repro/kernels/sgs_decode.py:39"),
+    "sched_violation": (f"{CSRC}/sched_violation.cu",
+                        "src/repro/kernels/sched_energy.py:30"),
+    "usl_runtime": (f"{CSRC}/usl_runtime.cu",
+                    "src/repro/kernels/usl_runtime.py:19"),
+}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -81,6 +101,22 @@ def same_outputs(a, b) -> float:
     return err
 
 
+def close_outputs(what, got, want, rtol, atol) -> float:
+    """Raise unless ``got`` is within rtol/atol of ``want`` (same shape,
+    float32); return the max abs difference."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: output {tuple(got.shape)}/{got.dtype} vs plain "
+             f"{tuple(want.shape)}/{want.dtype}")
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite kernel output")
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        fail(f"{what}: kernel disagrees with its plain version beyond rtol "
+             f"{rtol}, atol {atol}")
+    return float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+
+
 def time_ms(fn, reps: int) -> float:
     import torch
     fn()
@@ -95,11 +131,44 @@ def time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def kernel_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``, its kernels run back to back. A spin
+    kernel holds the stream while the host queues ``reps`` calls, so the
+    events time the kernels and not the host launching them, which is what
+    ``time_ms`` reads wherever the host is the slower (the ising kernels
+    run for microseconds). The spin doubles until the host has queued
+    every call before it ends."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    spin = 1 << 22                  # cycles; about 2 ms at 1.98 GHz
+    while spin <= 1 << 31:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued_behind_spin = not a.query()
+        torch.cuda.synchronize()
+        if queued_behind_spin:
+            return a.elapsed_time(b) / reps
+        spin *= 2
+    fail(f"could not queue {reps} calls behind a spin of {spin // 2} cycles")
+
+
+def least_ms(nbytes, ops):
+    """The larger of the two times, in ms, and which one bounds."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(args, out, T):
     """Least time the card needs for one decode of these inputs: each input
     read once, each output written once, over HBM; the simple float32/int
     operations this run's data needs over the float32 peak."""
-    import torch
     dur, dem, prio, release, pred, caps = args
     rows, J = dur.shape
     G = 1 if release.dim() == 1 else release.shape[0]
@@ -112,17 +181,41 @@ def bound(args, out, T):
     # the overload flag, 4 per bin for the prefix sum and the window test;
     # then one add per (placed bin, resource)
     ops = rows * J * (J + 3 * T * M + 4 * T) + M * int(placed.sum())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return (*least_ms(nbytes, ops), nbytes, ops)
+
+
+def sched_bound(args, T):
+    """Least time for one violation mass of these inputs: start, dur, dem
+    and caps read once and (B,) written, over HBM; over the float32 peak,
+    one add per task for its end, one add per (resource, covered bin) of
+    each task — what this run's intervals cover — and a subtract, a max
+    and a sum add per (candidate, resource, bin)."""
+    import torch
+    start, dur, dem, caps = (x.float() for x in args)
+    B, M, J = dem.shape
+    nbytes = 4 * (start.numel() + dur.numel() + dem.numel() + M + B)
+    lo = torch.ceil(start).clamp(0, T)
+    hi = torch.ceil(start + dur).clamp(0, T)
+    covered = int((hi - lo).clamp(min=0).sum())
+    ops = B * J + M * covered + 3 * B * M * T
+    return (*least_ms(nbytes, ops), nbytes, ops)
+
+
+def usl_bound(n_elems):
+    """Five float32 inputs read and one written per element; ten simple
+    operations (two subtracts, four multiplies, two adds, two divides) and
+    one max per element."""
+    nbytes, ops = 6 * 4 * n_elems, 11 * n_elems
+    return (*least_ms(nbytes, ops), nbytes, ops)
 
 
 class Capture:
-    """Wraps ``kernels.ops.sgs_decode`` and keeps a copy of the inputs of
-    the ``at``-th call (the decode of one sweep of a live solve)."""
+    """Wraps ``kernels.ops.<name>`` and keeps a copy of the inputs of the
+    ``at``-th call (the kernel call of one step of a live solve)."""
 
-    def __init__(self, ops, at: int):
-        self.ops, self.orig, self.at, self.n = ops, ops.sgs_decode, at, 0
+    def __init__(self, ops, name: str, at: int):
+        self.ops, self.name, self.at, self.n = ops, name, at, 0
+        self.orig = getattr(ops, name)
         self.args = self.T = None
 
     def __call__(self, *args, **kw):
@@ -132,11 +225,11 @@ class Capture:
         return self.orig(*args, **kw)
 
     def __enter__(self):
-        self.ops.sgs_decode = self
+        setattr(self.ops, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        self.ops.sgs_decode = self.orig
+        setattr(self.ops, self.name, self.orig)
 
 
 def profile_solve(name, sess, batch, unprofiled_s) -> None:
@@ -177,23 +270,28 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA card", file=sys.stderr)
         return 2
-    if not os.path.exists(os.path.join(ROOT, KERNEL_SOURCE)):
-        print(f"chip_smoke: {KERNEL_SOURCE} not found beside this script; "
-              f"run it from a checkout of the repository", file=sys.stderr)
-        return 2
+    for source, _ in KERNELS.values():
+        if not os.path.exists(os.path.join(ROOT, source)):
+            print(f"chip_smoke: {source} not found beside this script; run "
+                  f"it from a checkout of the repository", file=sys.stderr)
+            return 2
     sys.path.insert(0, SRC)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import numpy as np
-    from _decode_cases import kernel_cases
+    from _decode_cases import (SCHED_SHAPES, USL_SHAPES, kernel_cases,
+                               sched_instance, usl_instance)
 
     from repro_torch.cluster.catalog import alibaba_cluster, paper_cluster
     from repro_torch.cluster.workloads import dag1, synth_trace
     from repro_torch.core import dag as tdag
+    from repro_torch.core import ising
     from repro_torch.core import vectorized as vec
     from repro_torch.core.agora import Agora
     from repro_torch.core.objectives import Goal
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import sched_violation as sv_kernel
     from repro_torch.kernels import sgs_decode as kernel
+    from repro_torch.kernels import usl_runtime as usl_kernel
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -205,16 +303,19 @@ def main(argv=None) -> int:
 
     # 1. build ---------------------------------------------------------------
     t0 = time.monotonic()
-    lib = kernel.build()
-    log(f"[build] {KERNEL_SOURCE} -> {os.path.relpath(lib, ROOT)} in "
-        f"{time.monotonic() - t0:.2f} s (nvcc {kernel.build.seconds:.2f} s)")
-    report = lib.with_suffix(".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build] {line.strip()}")
+    libs = _build.build(*KERNELS)
+    log(f"[build] {len(libs)} kernels in {time.monotonic() - t0:.2f} s "
+        f"(one nvcc each, in parallel)")
+    for name, lib in libs.items():
+        log(f"[build] {KERNELS[name][0]} -> {os.path.relpath(lib, ROOT)} "
+            f"(nvcc {_build.seconds[name]:.2f} s)")
+        report = lib.with_suffix(".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log(f"[build] {name}: {line.strip()}")
 
-    # 2. kernel against its plain version, on the card -----------------------
+    # 2. kernels against their plain versions, on the card -------------------
     def on_card(args):
         return [torch.from_numpy(a).to(dev) for a in args]
 
@@ -226,7 +327,60 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"[parity] {len(cases)} decode instances: kernel == plain version")
 
+    sched_err = 0.0
+    exact = True
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, J, M, T in SCHED_SHAPES:
+            start, dur, dem, caps = on_card(sched_instance(B, J, M, T))
+            start, dur, dem = (x.to(dtype) for x in (start, dur, dem))
+            got = ops.sched_violation(start, dur, dem, caps, T=T,
+                                      use_kernel=True)
+            want = ops.sched_violation(start, dur, dem, caps, T=T,
+                                       use_kernel=False)
+            sched_err = max(sched_err, close_outputs(
+                f"sched_violation {(B, J, M, T)} {dtype}", got, want,
+                rtol=2e-5, atol=2e-4))
+            exact = exact and torch.equal(got, want)
+            if (got < 0).any():
+                fail(f"sched_violation {(B, J, M, T)}: negative violation")
+            free = ops.sched_violation(start, dur, dem,
+                                       torch.full_like(caps, 1e9), T=T,
+                                       use_kernel=True)
+            if (free != 0).any():
+                fail(f"sched_violation {(B, J, M, T)}: nonzero violation at "
+                     f"caps 1e9")
+    torch.cuda.synchronize()
+    log(f"[parity] sched_violation on {len(SCHED_SHAPES)} shapes x "
+        f"(float32, bfloat16): within rtol 2e-5, atol 2e-4 of the plain "
+        f"version (max abs err {sched_err}, bit for bit: {exact}); zero at "
+        f"caps 1e9, never negative")
+
+    usl_err = 0.0
+    exact = True
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in USL_SHAPES:
+            args = [x.to(dtype) for x in on_card(usl_instance(shape))]
+            got = ops.usl_runtime(*args, use_kernel=True)
+            want = ops.usl_runtime(*args, use_kernel=False)
+            usl_err = max(usl_err, close_outputs(
+                f"usl_runtime {shape} {dtype}", got, want, rtol=1e-5,
+                atol=1e-5))
+            exact = exact and torch.equal(got, want)
+    torch.cuda.synchronize()
+    log(f"[parity] usl_runtime on {len(USL_SHAPES)} shapes x (float32, "
+        f"bfloat16): within rtol 1e-5, atol 1e-5 of the plain version "
+        f"(max abs err {usl_err}, bit for bit: {exact})")
+
     # small end-to-end: the kernel route and the plain route give one plan
+    def same_plans(what, xs, ys):
+        for x, y in zip(xs, ys):
+            if not (np.array_equal(x.option_idx, y.option_idx)
+                    and np.array_equal(x.start, y.start)
+                    and np.array_equal(x.finish, y.finish)):
+                fail(f"{what}: kernel and plain routes disagree")
+            if x.energy != y.energy:
+                fail(f"{what}: energies differ")
+
     small = vec.VecConfig(chains=8, iters=40, grid=128, seed=0)
     c20 = alibaba_cluster(machines=20)
     dags = synth_trace(3, c20, seed=11)
@@ -242,22 +396,33 @@ def main(argv=None) -> int:
             out = solve(probs, c20, Goal.balanced(), cfg, bucket_p=4,
                         device=dev, tape=tape)
             plans.append(out[0] if isinstance(out, tuple) else out)
-        for x, y in zip(*plans):
-            if not (np.array_equal(x.option_idx, y.option_idx)
-                    and np.array_equal(x.start, y.start)
-                    and np.array_equal(x.finish, y.finish)):
-                fail(f"{solve.__name__}: kernel and plain routes disagree")
-            if x.energy != y.energy:
-                fail(f"{solve.__name__}: energies differ")
-    log("[parity] small isolated and shared solves: kernel route == plain "
-        "route, plan for plan")
+        same_plans(solve.__name__, *plans)
+    small_ising = ising.IsingConfig(chains=32, iters=100, seed=0)
+    tape = ising.ising_tape(probs[0].option_arrays()[3], small_ising, dev)
+    plans = [[ising.ising_anneal(
+        probs[0], c20, Goal.balanced(),
+        dataclasses.replace(small_ising, use_kernel=use_kernel),
+        device=dev, tape=tape)] for use_kernel in (True, False)]
+    same_plans("ising_anneal", *plans)
+    log("[parity] small isolated, shared and ising solves: kernel route == "
+        "plain route, plan for plan")
 
-    # 3. the main path at VecConfig() defaults -------------------------------
+    # 3-4. the main path and the ising path at their config defaults ---------
+    usl_kernel.usl_runtime.launches = 0      # no path calls it
     cfg = vec.VecConfig()
-    per_solve = cfg.iters + 1
+    icfg = ising.IsingConfig()
     results = {}
 
-    def serve(name, cluster, seeds, shared, release_zero):
+    def serve(name, solver, cluster, seeds, shared, release_zero):
+        """Warm a bucket-16 session up and serve a batch of 16 per seed;
+        check plans, signatures and the path kernel's launches."""
+        if solver == "ising":
+            counted, call = sv_kernel.sched_violation, "sched_violation"
+            per_solve, at = icfg.iters + 1, icfg.iters // 2
+        else:
+            counted, call = kernel.sgs_decode, "sgs_decode"
+            per_solve = cfg.iters + 1 + (1 if shared else 0)
+            at = cfg.iters // 2
         batches = [synth_trace(16, cluster, seed=s) for s in seeds]
         if release_zero:           # tenants contend for the same cores
             for b in batches:
@@ -272,10 +437,10 @@ def main(argv=None) -> int:
             if (jmax, omax) != envelope:
                 fail(f"{name}: batch envelope {(jmax, omax)} != template's "
                      f"{envelope}")
-        agora = Agora(cluster, solver="vectorized", vec_cfg=cfg, device=dev)
+        agora = Agora(cluster, solver=solver, vec_cfg=cfg, device=dev)
         sess = agora.session(shared_capacity=shared, bucket_p=16)
         torch.cuda.synchronize()
-        kernel.sgs_decode.launches = 0
+        counted.launches = 0
         t0 = time.monotonic()
         warm = sess.warmup(template)
         warm_s = time.monotonic() - t0
@@ -284,7 +449,7 @@ def main(argv=None) -> int:
         for i, batch in enumerate(batches):
             t0 = time.monotonic()
             if i == 0:
-                with Capture(ops, at=cfg.iters // 2) as cap:
+                with Capture(ops, call, at=at) as cap:
                     res = sess.plan(batch)
                 captured = (cap.args, cap.T)
             else:
@@ -301,47 +466,75 @@ def main(argv=None) -> int:
             if len(res) != len(batch):
                 fail(f"{name}: {len(res)} plans for {len(batch)} requests")
         torch.cuda.synchronize()
-        launches = kernel.sgs_decode.launches
-        solves = 1 + len(batches)
+        launches = counted.launches
+        # the ising engine solves an isolated batch one problem at a time
+        per_batch = [len(b) if solver == "ising" and not shared else 1
+                     for b in batches]
+        solves = 1 + sum(per_batch)
         if sess.stats.trace_count != traces:
             fail(f"{name}: {sess.stats.trace_count - traces} new signatures "
                  f"after warmup")
-        need = solves * (per_solve + (1 if shared else 0))
+        need = solves * per_solve
         if launches < need:
-            fail(f"{name}: kernel launched {launches} times, expected at "
+            fail(f"{name}: {call} launched {launches} times, expected at "
                  f"least {need}")
         bs = sess.stats.bucket(16)
-        log(f"[{name}] warmup {warm_s:.3f} s ({warm}); steady solves "
+        log(f"[{name}] warmup {warm_s:.3f} s ({warm}); steady batches "
             f"{[round(s, 3) for s in steady]} s; bucket 16 warmup_seconds "
             f"{bs.warmup_seconds:.3f} steady_seconds {bs.steady_seconds:.3f}; "
-            f"trace_count {sess.stats.trace_count}; kernel launches "
+            f"trace_count {sess.stats.trace_count}; {call} launches "
             f"{launches} over {solves} solves")
         results[name] = dict(launches=launches, captured=captured,
                              solve_s=steady, warm_s=warm_s)
         if profile:
-            profile_solve(name, sess, batches[-1], steady[-1])
+            if solver == "ising" and not shared:
+                # one request: a batch is 16 sequential solves
+                t0 = time.monotonic()
+                sess.plan(batches[-1][:1])
+                one_s = time.monotonic() - t0
+                profile_solve(name, sess, batches[-1][:1], one_s)
+            else:
+                profile_solve(name, sess, batches[-1], steady[-1])
 
-    serve("isolated", alibaba_cluster(), (1, 2), shared=False,
+    def quickstart(name, solver, counted, per_solve):
+        counted.launches = 0
+        pc = paper_cluster()
+        t0 = time.monotonic()
+        plan = Agora(pc, solver=solver, vec_cfg=cfg, device=dev).plan(
+            [dag1(pc)])
+        quick_s = time.monotonic() - t0
+        if plan.validate():
+            fail(f"{name}: invalid plan {plan.validate()[:3]}")
+        if counted.launches < per_solve:
+            fail(f"{name}: kernel launched {counted.launches} times")
+        log(f"[{name}] dag1 on paper_cluster: makespan {plan.makespan:.1f} "
+            f"s cost ${plan.cost:.2f} in {quick_s:.3f} s; kernel launches "
+            f"{counted.launches}")
+
+    serve("isolated", "vectorized", alibaba_cluster(), (1, 2), shared=False,
           release_zero=False)
-    serve("shared", alibaba_cluster(machines=20), (3, 5), shared=True,
-          release_zero=True)
+    serve("shared", "vectorized", alibaba_cluster(machines=20), (3, 5),
+          shared=True, release_zero=True)
+    quickstart("quickstart", "vectorized", kernel.sgs_decode, cfg.iters + 1)
 
-    kernel.sgs_decode.launches = 0
-    pc = paper_cluster()
-    t0 = time.monotonic()
-    plan = Agora(pc, solver="vectorized", vec_cfg=cfg, device=dev).plan(
-        [dag1(pc)])
-    quick_s = time.monotonic() - t0
-    if plan.validate():
-        fail(f"quickstart: invalid plan {plan.validate()[:3]}")
-    if kernel.sgs_decode.launches < per_solve:
-        fail(f"quickstart: kernel launched {kernel.sgs_decode.launches} times")
-    log(f"[quickstart] dag1 on paper_cluster: makespan {plan.makespan:.1f} s "
-        f"cost ${plan.cost:.2f} in {quick_s:.3f} s; kernel launches "
-        f"{kernel.sgs_decode.launches}")
+    serve("ising-isolated", "ising", alibaba_cluster(), (1,), shared=False,
+          release_zero=False)
+    serve("ising-shared", "ising", alibaba_cluster(machines=20), (3,),
+          shared=True, release_zero=True)
+    quickstart("ising-quickstart", "ising", sv_kernel.sched_violation,
+               icfg.iters + 1)
 
-    # kernel numbers at the main path's shapes --------------------------------
+    # kernel numbers at the paths' shapes ------------------------------------
     entries = []
+
+    def entry(name, launches, err, ms, plain_ms, bound_ms, bound_by):
+        kernel_name = name.split("[")[0]
+        source, replaces = KERNELS[kernel_name]
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+
     for name in ("isolated", "shared"):
         args, T = results[name]["captured"]
         if args is None:
@@ -353,20 +546,71 @@ def main(argv=None) -> int:
         out_k = ops.sgs_decode(*args, T=T, use_kernel=True)
         out_p = ops.sgs_decode(*args, T=T, use_kernel=False)
         err = same_outputs(out_k, out_p)
-        ms = time_ms(lambda: kernel.sgs_decode(*k_args, T=T),
-                     reps=50 if name == "isolated" else 10)
+        reps = 50 if name == "isolated" else 10
+        call_ms = time_ms(lambda: kernel.sgs_decode(*k_args, T=T), reps)
+        ms = kernel_ms(lambda: kernel.sgs_decode(*k_args, T=T), reps)
         plain_ms = time_ms(lambda: ops.sgs_decode(*args, T=T,
                                                   use_kernel=False), reps=3)
         bound_ms, bound_by, nbytes, nops = bound(args, out_k, T)
         rows, J = args[0].shape
         log(f"[{name}] decode rows {rows} J {J} M {args[5].shape[0]} T {T}: "
-            f"kernel {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
+            f"kernel {ms:.4f} ms/launch on the device ({call_ms:.4f} ms "
+            f"per call as launched), plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {nops} ops)")
-        entries.append(dict(
-            name=f"sgs_decode[{name}]", route="cuda", source=KERNEL_SOURCE,
-            replaces=TPU_KERNEL, launches=results[name]["launches"],
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None))
+        entry(f"sgs_decode[{name}]", results[name]["launches"], err, ms,
+              plain_ms, bound_ms, bound_by)
+
+    for name in ("isolated", "shared"):
+        args, T = results[f"ising-{name}"]["captured"]
+        if args is None:
+            fail(f"ising-{name}: no sched_violation call captured")
+        k_args = [x.float().contiguous() for x in args]
+        got = ops.sched_violation(*args, T=T, use_kernel=True)
+        want = ops.sched_violation(*args, T=T, use_kernel=False)
+        err = close_outputs(f"sched_violation[{name}]", got, want,
+                            rtol=2e-5, atol=2e-4)
+        call_ms = time_ms(lambda: sv_kernel.sched_violation(*k_args, T=T),
+                          reps=200)
+        ms = kernel_ms(lambda: sv_kernel.sched_violation(*k_args, T=T),
+                       200)
+        plain_ms = time_ms(lambda: ops.sched_violation(*args, T=T,
+                                                       use_kernel=False),
+                           reps=5)
+        bound_ms, bound_by, nbytes, nops = sched_bound(args, T)
+        B, M, J = args[2].shape
+        log(f"[ising-{name}] sched_violation B {B} J {J} M {M} T {T}: "
+            f"kernel {ms:.4f} ms/launch on the device ({call_ms:.4f} ms "
+            f"per call as launched), plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}; {nbytes} B, {nops} ops), max "
+            f"abs err {err}")
+        entry(f"sched_violation[{name}]", results[f"ising-{name}"]["launches"],
+              err, ms, plain_ms, bound_ms, bound_by)
+
+    # usl_runtime: no path calls it; a grid of 4096 tasks x 256 configurations
+    path_launches = usl_kernel.usl_runtime.launches
+    rng = np.random.default_rng(0)
+    shape = (4096, 256)
+    grid = on_card([np.asarray(x, np.float32) for x in (
+        np.broadcast_to(rng.integers(1, 257, (1, 256)), shape),
+        rng.uniform(0, 0.2, shape), rng.uniform(0, 0.01, shape),
+        rng.uniform(0.5, 3, shape), rng.uniform(10, 1000, shape))])
+    got = ops.usl_runtime(*grid, use_kernel=True)
+    err = close_outputs("usl_runtime[grid]", got,
+                        ops.usl_runtime(*grid, use_kernel=False),
+                        rtol=1e-5, atol=1e-5)
+    call_ms = time_ms(lambda: usl_kernel.usl_runtime(*grid), reps=200)
+    ms = kernel_ms(lambda: usl_kernel.usl_runtime(*grid), 200)
+    plain_ms = time_ms(lambda: ops.usl_runtime(*grid, use_kernel=False),
+                       reps=50)
+    bound_ms, bound_by, nbytes, nops = usl_bound(got.numel())
+    log(f"[usl_runtime] grid {shape}: kernel {ms:.4f} ms/launch on the "
+        f"device ({call_ms:.4f} ms per call as launched), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; {nbytes} "
+        f"B, {nops} ops), max abs err {err}; launches on the paths "
+        f"{path_launches}")
+    entry("usl_runtime[grid]", path_launches, err, ms, plain_ms, bound_ms,
+          bound_by)
+
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

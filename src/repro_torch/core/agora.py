@@ -114,6 +114,7 @@ def _sequential_solve(batch: SolveBatch):
 # "host-anneal" also serves the legacy 1-D chains-mesh vectorized mode —
 # the sequential shape is the same, only batch.solve_single differs
 register_engine("host-anneal", _sequential_solve)
+register_engine("ising", _sequential_solve)
 
 
 # ---------------------------------------------------------------------------
@@ -188,8 +189,6 @@ class Agora:
                  vec_cfg: Optional[VecConfig] = None,
                  mesh=None, device=None):
         assert solver in ("anneal", "vectorized", "ising")
-        if solver == "ising":
-            raise NotImplementedError(f"the ising engine {NOT_PORTED}")
         if mesh is not None:
             raise NotImplementedError(f"mesh-sharded solving {NOT_PORTED}")
         self.device = resolve_device(device)

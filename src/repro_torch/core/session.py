@@ -412,7 +412,9 @@ class PlannerSession:
             from repro_torch.core.annealer import anneal
             return anneal(problem, cluster, goal, self.anneal_cfg, ref)
         if self.solver == "ising":
-            raise NotImplementedError(f"the ising engine {NOT_PORTED}")
+            from repro_torch.core.ising import ising_anneal
+            return ising_anneal(problem, cluster, goal, ref=ref,
+                                device=self.device)
         from repro_torch.core.vectorized import vectorized_anneal
         return vectorized_anneal(problem, cluster, goal, self.vec_cfg, ref,
                                  mesh=self._chains_mesh(), device=self.device)

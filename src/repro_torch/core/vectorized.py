@@ -44,6 +44,8 @@ from repro_torch.core.sgs import (schedule_cost, sgs_schedule,
 from repro_torch.device import FLOAT, INDEX, INT, resolve_device
 from repro_torch.kernels import ops as kops
 
+_SQRT_HALF = float(np.float32(math.sqrt(0.5)))
+
 NOT_PORTED = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
 
 
@@ -299,7 +301,7 @@ class DrawTape:
     Init draws are (P, B, J); per-sweep draws are (iters, P, B) — the five
     draws of a sweep: the slot whose option mutates (``j_opt``), its new
     option (``new_o`` < n_opts of that slot), the slot whose priority
-    jitters (``j_pr``), the standard-normal jitter and the Metropolis
+    jitters (``j_pr``), the jitter's draw and the Metropolis
     uniform. Both engines read the same tape, which is what lets shared
     mode over disjoint capacities equal isolated mode."""
     rand_opt: torch.Tensor      # (P, B, J) int32 in [0, 1e6), before % n_opts
@@ -307,7 +309,8 @@ class DrawTape:
     j_opt: torch.Tensor         # (iters, P, B) int64
     new_o: torch.Tensor         # (iters, P, B) int32
     j_pr: torch.Tensor          # (iters, P, B) int64
-    jitter: torch.Tensor        # (iters, P, B) f32 N(0, 1), before * prio_sigma
+    jitter: torch.Tensor        # (iters, P, B) f32 N(0, 1/2): erf_inv(U(-1, 1)),
+                                # a standard normal before its factor sqrt(2)
     u: torch.Tensor             # (iters, P, B) f32 U[0, 1)
 
     _DTYPES = dict(rand_opt=INT, prio0=FLOAT, j_opt=INDEX, new_o=INT,
@@ -363,7 +366,8 @@ def draw_tape(packed: PackedProblems, cfg: VecConfig, device) -> DrawTape:
         parts["new_o"].append(torch.minimum((pick * bound).to(INT), bound - 1))
         parts["j_pr"].append(torch.randint(0, n_mut, (n, B), dtype=INDEX,
                                            **kw))
-        parts["jitter"].append(torch.randn((n, B), dtype=FLOAT, **kw))
+        parts["jitter"].append(torch.randn((n, B), dtype=FLOAT, **kw)
+                               * _SQRT_HALF)
         parts["u"].append(torch.rand((n, B), dtype=FLOAT, **kw))
     return DrawTape(**{k: torch.stack(v, dim=0 if k in ("rand_opt", "prio0")
                                       else 1)
@@ -475,6 +479,15 @@ def _telemetry_steps(iters: int, every: int) -> np.ndarray:
     return steps.astype(np.int32)
 
 
+def _jitter_scale(prio_sigma: float) -> float:
+    """The reference jitters with ``normal * prio_sigma`` where ``normal =
+    sqrt(2) * erf_inv(u)``. XLA folds the two constants into one float32
+    factor, so its update is ``prio + float32(erf_inv(u) * factor)``: the
+    tape holds ``erf_inv(u)`` and the port multiplies by the same factor."""
+    return float(np.float32(np.float32(math.sqrt(2.0))
+                            * np.float32(prio_sigma)))
+
+
 def _sa_loop(energy_fn, cfg: VecConfig, opt0, prio0, tape: DrawTape, *,
              shared: bool):
     """Run cfg.iters SA sweeps over (P, B, J) chain states.
@@ -494,6 +507,7 @@ def _sa_loop(energy_fn, cfg: VecConfig, opt0, prio0, tape: DrawTape, *,
     best_opt, best_prio, best_e = opt0, prio0, e0
     jbest = (opt0, prio0, e0.sum(dim=0)) if shared else None
     temp = np.float32(cfg.t0)
+    sigma = _jitter_scale(cfg.prio_sigma)
     trace = []
     for it in range(cfg.iters):
         # propose: mutate one task's option; jitter one task's priority
@@ -502,7 +516,7 @@ def _sa_loop(energy_fn, cfg: VecConfig, opt0, prio0, tape: DrawTape, *,
         p_opt[pidx, bidx, j_opt] = tape.new_o[it]
         p_prio = prio.clone()
         p_prio[pidx, bidx, j_pr] = (prio[pidx, bidx, j_pr]
-                                    + tape.jitter[it] * cfg.prio_sigma)
+                                    + tape.jitter[it] * sigma)
         p_e = energy_fn(p_opt, p_prio)[0]
 
         if shared:

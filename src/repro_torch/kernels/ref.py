@@ -96,3 +96,61 @@ def sgs_decode_ref(dur, dem, prio, release, pred, caps, *, T: int):
         scheduled[rows, j] = True
         placed_ok[rows, j] = any_ok
     return start, finish, placed_ok
+
+
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed order: pad with zeros to a power
+    of two N, then halve, adding element k + N/2 to element k, until one
+    is left. The CUDA kernels reduce in exactly this order, so the plain
+    version and the kernel round alike."""
+    n = x.shape[-1]
+    size = 1 << max(n - 1, 0).bit_length()
+    if size != n:
+        x = torch.nn.functional.pad(x, (0, size - n))
+    while size > 1:
+        size //= 2
+        x = x[..., :size] + x[..., size:]
+    return x[..., 0]
+
+
+def sched_violation_ref(start, dur, dem, caps, T: int):
+    """Capacity-violation mass of a batch of candidate schedules on a time
+    grid — the hot spot of penalized ('Ising-form') schedule annealing.
+
+    start, dur: (B, J) f32 or bf16 in grid units
+    dem:        (B, M, J) f32 or bf16 per-task demands
+    caps:       (M,) f32
+    T:          grid length
+
+    Returns viol (B,) f32: sum_t sum_m max(0, usage_btm - caps_m), with
+    usage[b, m, t] = sum_j dem[b,m,j] * 1[start_bj <= t < start_bj + dur_bj]
+    for the bins t < T; ``start + dur`` rounds in float32 as in the JAX
+    reference (``repro/kernels/ref.py:sched_violation_ref``). Math in
+    float32. The sums have a fixed order, the one the CUDA kernel uses:
+    usage adds the tasks in index order (a product with the 0/1 mask is
+    exact), and the violation is the ``pairwise_sum`` of the (M, T) excess
+    in row-major order.
+    """
+    start = start.to(FLOAT)
+    end = start + dur.to(FLOAT)
+    dem = dem.to(FLOAT)
+    B, M, J = dem.shape
+    t = torch.arange(T, dtype=FLOAT, device=start.device)
+    mask = ((t >= start[:, :, None])
+            & (t < end[:, :, None])).to(FLOAT)                    # (B, J, T)
+    usage = torch.zeros((B, M, T), dtype=FLOAT, device=start.device)
+    for j in range(J):
+        # the product is exact, so a fused multiply-add rounds as an add
+        usage.addcmul_(dem[:, :, j, None], mask[:, None, j, :])
+    over = torch.clamp(usage - caps.to(FLOAT)[None, :, None], min=0.0)
+    return pairwise_sum(over.reshape(B, M * T))
+
+
+def usl_runtime_ref(n, alpha, beta, gamma, work):
+    """Batched USL runtime (paper Eq. 9): runtime = work / X(n) with
+    X(n) = gamma * n / (1 + alpha (n-1) + beta n (n-1)). All inputs
+    broadcastable to a common shape; float32 math, each operation rounded
+    in the order written (the CUDA kernel's order)."""
+    n, a, b, g, w = (x.to(FLOAT) for x in (n, alpha, beta, gamma, work))
+    x = g * n / (1.0 + a * (n - 1.0) + b * n * (n - 1.0))
+    return w / torch.clamp(x, min=1e-9)

@@ -1,13 +1,11 @@
-"""CUDA serial-SGS decode for Hopper: build, binding and launch counter.
+"""CUDA serial-SGS decode for Hopper: binding and launch counter.
 
 The kernel (``csrc/sgs_decode.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/sgs_decode.py:_kernel``; the source says what bounds it on
-the card and how the design answers that. It is compiled at first use
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, cached by source hash under ``build/repro_torch/`` at the root
-of the checkout, and called through ``ctypes`` on PyTorch's current
-stream. Nothing here builds or imports anything CUDA-specific when the
-module is imported.
+the card and how the design answers that. ``kernels/_build.py`` compiles
+it at first use and loads it; it is called through ``ctypes`` on
+PyTorch's current stream. Nothing here builds or imports anything
+CUDA-specific when the module is imported.
 
 Same contract as ``kernels/ref.sgs_decode_ref``, bit for bit.
 """
@@ -15,85 +13,25 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from repro_torch.device import FLOAT, INT
-
-SOURCE = Path(__file__).resolve().parent / "csrc" / "sgs_decode.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "--fmad=false", "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
-
-
-def build() -> Path:
-    """Compile the kernel library (once per source hash) and return its
-    path. The compiler's ``-Xptxas -v`` report lands beside it as
-    ``.log``; ``build.seconds`` holds the last compile's wall time (0.0
-    when the cached library was reused)."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"libsgs_decode-{digest[:16]}.so"
-    build.seconds = 0.0
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    t0 = time.monotonic()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True, check=False)
-    build.seconds = time.monotonic() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name} "
-                           f"(exit {res.returncode}):\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)          # atomic: a concurrent loader never sees half
-    return out
-
-
-build.seconds = 0.0
+from repro_torch.kernels import _build
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = _build.load("sgs_decode")
     lib.sgs_decode_launch.argtypes = ([ctypes.c_void_p] * 9
                                       + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p])
     lib.sgs_decode_launch.restype = ctypes.c_int
-    lib.sgs_decode_error_string.argtypes = [ctypes.c_int]
-    lib.sgs_decode_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _check(name: str, x: torch.Tensor, dtypes, dim: int, device) -> None:
-    if x.device != device:
-        raise ValueError(f"sgs_decode: {name} is on {x.device}, expected "
-                         f"{device}")
-    if x.dtype not in dtypes:
-        raise TypeError(f"sgs_decode: {name} has dtype {x.dtype}, expected "
-                        f"one of {dtypes}")
-    if x.dim() != dim or not x.is_contiguous():
-        raise ValueError(f"sgs_decode: {name} must be a contiguous "
-                         f"{dim}-d tensor, got shape {tuple(x.shape)}")
+    _build.check_tensor("sgs_decode", name, x, dtypes, dim, device)
 
 
 def sgs_decode(dur, dem, prio, release, pred, caps, *, T: int):
@@ -133,9 +71,7 @@ def sgs_decode(dur, dem, prio, release, pred, caps, *, T: int):
             release.data_ptr(), pred.data_ptr(), caps.data_ptr(),
             start.data_ptr(), finish.data_ptr(), ok.data_ptr(),
             B, J, M, int(T), B // G, stream)
-    if rc != 0:
-        raise RuntimeError("sgs_decode launch failed: "
-                           + lib.sgs_decode_error_string(rc).decode())
+    _build.check_launch("sgs_decode", lib, rc)
     sgs_decode.launches += 1
     return start, finish, ok
 

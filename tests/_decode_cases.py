@@ -1,6 +1,7 @@
-"""Decode instances shared by the port's decode tests (numpy only, so the
-card-side tests import no jax): a numpy copy of
-tests/test_sgs_decode.py's ``_random_instance`` and edge cases."""
+"""Kernel instances shared by the port's tests and ``chip_smoke.py`` (numpy
+only, so the card-side tests import no jax): a numpy copy of
+tests/test_sgs_decode.py's ``_random_instance`` and edge cases, and the
+``sched_violation`` / ``usl_runtime`` inputs of tests/test_kernels.py."""
 import numpy as np
 
 SHAPES = [(1, 1, 1, 32), (4, 7, 2, 64), (8, 20, 3, 256), (2, 33, 4, 100),
@@ -65,3 +66,29 @@ def kernel_cases():
     cases.append((grouped_instance(rng, 4, 64, 16, 2, 256)[1], 256))
     cases.append((grouped_instance(rng, 1, 32, 300, 2, 300)[1], 300))
     return cases
+
+
+# tests/test_kernels.py's shapes: sched_violation (B, J, M, T), usl_runtime
+SCHED_SHAPES = [(1, 1, 1, 16), (4, 7, 4, 100), (8, 33, 2, 256),
+                (2, 130, 3, 300), (16, 5, 1, 64), (3, 128, 8, 128)]
+USL_SHAPES = [(1,), (100,), (7, 13), (1025,), (4, 8, 32)]
+
+
+def sched_instance(B, J, M, T):
+    """start, dur (B, J), dem (B, M, J), caps (M,) float32, seeded as
+    tests/test_kernels.py seeds them."""
+    rng = np.random.default_rng(B * 1000 + J)
+    start = rng.uniform(0, T * 0.9, (B, J))
+    dur = rng.uniform(1, T * 0.3, (B, J))
+    dem = rng.uniform(0, 4, (B, M, J))
+    caps = rng.uniform(2, 10, (M,))
+    return [np.asarray(x, np.float32) for x in (start, dur, dem, caps)]
+
+
+def usl_instance(shape):
+    """n, alpha, beta, gamma, work of one shape, float32."""
+    rng = np.random.default_rng(42)
+    args = (rng.integers(1, 64, shape), rng.uniform(0, 0.2, shape),
+            rng.uniform(0, 0.01, shape), rng.uniform(0.5, 3, shape),
+            rng.uniform(10, 1000, shape))
+    return [np.asarray(x, np.float32) for x in args]

@@ -22,9 +22,11 @@ def _all_modules():
 
 def test_package_has_the_slice_modules():
     mods = set(_all_modules())
-    for name in ("device", "kernels.ref", "kernels.ops", "kernels.sgs_decode",
-                 "core.vectorized", "core.session", "core.agora",
-                 "cluster.workloads", "obs.sink"):
+    for name in ("device", "kernels.ref", "kernels.ops", "kernels._build",
+                 "kernels.sgs_decode", "kernels.sched_violation",
+                 "kernels.usl_runtime", "core.vectorized", "core.ising",
+                 "core.session", "core.agora", "cluster.workloads",
+                 "obs.sink"):
         assert "repro_torch." + name in mods
 
 
@@ -48,6 +50,23 @@ def test_port_imports_no_jax_and_no_reference():
     assert res.stdout.strip() == "ok"
 
 
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    """``chip_smoke.py`` and the test cases it reads import neither jax nor
+    anything of ``repro``, at any depth of the file."""
+    import ast
+    for path in ("chip_smoke.py", os.path.join("tests", "_decode_cases.py")):
+        with open(os.path.join(ROOT, path)) as f:
+            tree = ast.parse(f.read())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module]
+        bad = [m for m in names if m.split(".")[0] in ("jax", "repro")]
+        assert not bad, (path, bad)
+        if path == "chip_smoke.py":      # the walk reaches main()'s imports
+            assert "repro_torch.core.agora" in names
+
+
 def test_default_device_is_cuda_and_never_falls_back():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
@@ -60,12 +79,13 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 def test_entry_points_default_to_cuda():
-    """``Agora``, ``agora.session`` and the engine functions run on the card
+    """``Agora``, ``agora.session`` and the solver functions run on the card
     unless the caller passes ``device="cpu"``; without a card they raise."""
     from repro_torch.cluster.catalog import paper_cluster
     from repro_torch.cluster.workloads import dag1
     from repro_torch.core.agora import Agora
     from repro_torch.core.dag import flatten
+    from repro_torch.core.ising import IsingConfig, ising_anneal
     from repro_torch.core.objectives import Goal
     from repro_torch.core.vectorized import VecConfig, vectorized_anneal_many
 
@@ -83,6 +103,9 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         vectorized_anneal_many([flatten([dag1(cluster)], 2)], cluster,
                                Goal.balanced(), VecConfig(chains=2, iters=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ising_anneal(flatten([dag1(cluster)], 2), cluster, Goal.balanced(),
+                     IsingConfig(chains=2, iters=1))
 
 
 def test_use_kernel_true_on_cpu_tensors_raises():

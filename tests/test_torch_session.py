@@ -1,7 +1,7 @@
 """The port's front door on the CPU: ``Agora`` and ``PlannerSession``.
 
 Plans from both solvers validate, the signature count (``trace_count``)
-stays flat after ``warmup``, the unported engines raise, and the copied
+stays flat after ``warmup``, the unported mesh paths raise, and the copied
 framework-free modules give the JAX package's results for the same seeds.
 """
 import numpy as np
@@ -78,8 +78,6 @@ def test_trace_count_flat_after_warmup(shared):
 
 def test_unported_engines_raise():
     cluster = tcat.paper_cluster()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Agora(cluster, solver="ising", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Agora(cluster, solver="vectorized", mesh=object(), device="cpu")
     agora = Agora(cluster, solver="vectorized", vec_cfg=SMALL, device="cpu")
