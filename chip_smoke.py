@@ -14,7 +14,8 @@ Phases, each failing loudly (no phase's failure is caught):
 2. parity — each kernel against its plain PyTorch version on the card:
    ``sgs_decode`` bit for bit on the instances of the decode tests
    (``tests/_decode_cases.py``: the random sweep, the edge cases, grouped
-   G > 1 calls, J above the block's thread count); ``sched_violation`` on
+   G > 1 calls, J = 300, and the main path's isolated and shared shapes
+   with an odd group size at J > 32); ``sched_violation`` on
    the shapes of ``tests/test_kernels.py`` in float32 and bfloat16 (rtol
    2e-5, atol 2e-4; zero at caps 1e9, never negative); ``usl_runtime`` on
    that file's shapes in float32 and bfloat16 (rtol 1e-5, atol 1e-5); and
@@ -553,10 +554,14 @@ def main(argv=None) -> int:
                                                   use_kernel=False), reps=3)
         bound_ms, bound_by, nbytes, nops = bound(args, out_k, T)
         rows, J = args[0].shape
-        log(f"[{name}] decode rows {rows} J {J} M {args[5].shape[0]} T {T}: "
-            f"kernel {ms:.4f} ms/launch on the device ({call_ms:.4f} ms "
-            f"per call as launched), plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {nops} ops)")
+        M, G = args[5].shape[0], k_args[3].shape[0]
+        warps, smem, _, _ = kernel.geometry(rows, J, M, T, rows // G)
+        log(f"[{name}] decode rows {rows} J {J} M {M} T {T}: kernel "
+            f"{ms:.4f} ms/launch on the device, {ms * 1e3 / J:.3f} us per "
+            f"step ({call_ms:.4f} ms per call as launched; {warps} rows per "
+            f"block, {smem} B shared memory per block), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+            f"{nbytes} B, {nops} ops)")
         entry(f"sgs_decode[{name}]", results[name]["launches"], err, ms,
               plain_ms, bound_ms, bound_by)
 

@@ -2,10 +2,13 @@
 
 The kernel (``csrc/sgs_decode.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/sgs_decode.py:_kernel``; the source says what bounds it on
-the card and how the design answers that. ``kernels/_build.py`` compiles
-it at first use and loads it; it is called through ``ctypes`` on
-PyTorch's current stream. Nothing here builds or imports anything
-CUDA-specific when the module is imported.
+the card and how the design answers that: one warp per chain row, W rows
+of one group per block, no block barrier in the step loop. The launch
+picks W itself (``geometry``) and refuses, with a ``ValueError``, a shape
+whose row state and precedence do not fit one block's shared memory.
+``kernels/_build.py`` compiles it at first use and loads it; it is called
+through ``ctypes`` on PyTorch's current stream. Nothing here builds or
+imports anything CUDA-specific when the module is imported.
 
 Same contract as ``kernels/ref.sgs_decode_ref``, bit for bit.
 """
@@ -27,7 +30,25 @@ def _library() -> ctypes.CDLL:
                                       + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p])
     lib.sgs_decode_launch.restype = ctypes.c_int
+    lib.sgs_decode_geometry.argtypes = ([ctypes.c_int] * 5
+                                        + [ctypes.POINTER(ctypes.c_int)]
+                                        + [ctypes.POINTER(ctypes.c_longlong)]
+                                        * 2)
+    lib.sgs_decode_geometry.restype = ctypes.c_int
     return lib
+
+
+def geometry(rows: int, J: int, M: int, T: int, rows_per_group: int):
+    """(rows per block W, dynamic shared memory per block, the card's limit
+    per block, fits) of a launch of this shape on the current CUDA device."""
+    lib = _library()
+    warps, smem, limit = (ctypes.c_int(), ctypes.c_longlong(),
+                          ctypes.c_longlong())
+    rc = lib.sgs_decode_geometry(rows, J, M, T, rows_per_group, warps, smem,
+                                 limit)
+    if rc > 0:
+        _build.check_launch("sgs_decode", lib, rc)
+    return warps.value, smem.value, limit.value, rc == 0
 
 
 def _check(name: str, x: torch.Tensor, dtypes, dim: int, device) -> None:
@@ -71,6 +92,13 @@ def sgs_decode(dur, dem, prio, release, pred, caps, *, T: int):
             release.data_ptr(), pred.data_ptr(), caps.data_ptr(),
             start.data_ptr(), finish.data_ptr(), ok.data_ptr(),
             B, J, M, int(T), B // G, stream)
+        if rc == -1:
+            _, need, limit, _ = geometry(B, J, M, int(T), B // G)
+    if rc == -1:
+        raise ValueError(f"sgs_decode: J {J}, M {M}, T {T}: one row's state "
+                         f"and its group's precedence need {need} bytes of "
+                         f"shared memory, more than the {limit} a block of "
+                         f"this card has; nothing was launched")
     _build.check_launch("sgs_decode", lib, rc)
     sgs_decode.launches += 1
     return start, finish, ok

@@ -56,15 +56,25 @@ def grouped_instance(rng, G, rows, J, M, T):
                              np.stack([i[4] for i in insts]), caps]
 
 
+# grouped shapes (G, rows per group, J, M, T) of the main path's decodes:
+# the isolated engine's 16 problems x 256 chains at J 14, the shared
+# engine's one joint problem of 16 x 14 slots, and an odd group size at
+# J > 32 (one row per block, a partial last word of the successor mask)
+MAIN_PATH_SHAPES = [(16, 256, 14, 2, 256), (1, 256, 224, 2, 256),
+                    (3, 5, 40, 2, 100)]
+
+
 def kernel_cases():
     """(args, T) instances the CUDA kernel is held to on the card: the
     random sweep, the edge cases, a grouped call at the isolated engine's
-    width, and one with more slots (J = 300) than the kernel has threads."""
+    width, one with J = 300 slots (ten words of slots a lane), and the
+    ``MAIN_PATH_SHAPES``."""
     rng = np.random.default_rng(7)
     cases = [(random_instance(rng, *s), s[3]) for s in SHAPES]
     cases += edge_cases()
     cases.append((grouped_instance(rng, 4, 64, 16, 2, 256)[1], 256))
     cases.append((grouped_instance(rng, 1, 32, 300, 2, 300)[1], 300))
+    cases += [(grouped_instance(rng, *s)[1], s[4]) for s in MAIN_PATH_SHAPES]
     return cases
 
 

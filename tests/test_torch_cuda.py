@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _decode_cases import (SCHED_SHAPES, USL_SHAPES, kernel_cases,
-                           sched_instance, usl_instance)
+from _decode_cases import (MAIN_PATH_SHAPES, SCHED_SHAPES, USL_SHAPES,
+                           kernel_cases, sched_instance, usl_instance)
 from repro_torch.cluster.catalog import alibaba_cluster
 from repro_torch.cluster.workloads import synth_trace
 from repro_torch.core import dag as tdag
@@ -47,6 +47,38 @@ def test_kernel_matches_plain_exactly(card):
         torch.cuda.synchronize()
         for a, b in zip(want, got):
             assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("G,rows,J,M,T", MAIN_PATH_SHAPES)
+def test_decode_geometry_gives_each_row_a_scheduler(card, G, rows, J, M,
+                                                    T):
+    """W rows of one group per block: the largest of 8, 4, 2, 1 dividing
+    the group's rows, at most 4 while the rows are fewer than the card's
+    schedulers (4 an SM)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    W, smem, limit, fits = kernel.geometry(G * rows, J, M, T, rows)
+    want = max(w for w in (8, 4, 2, 1) if rows % w == 0)
+    if G * rows < 4 * sms:
+        want = min(want, 4)
+    assert fits and 0 < smem <= limit
+    assert W == want
+
+
+def test_kernel_refuses_shape_beyond_shared_memory(card):
+    """A group whose precedence and row state do not fit one block's shared
+    memory raises before any launch; nothing is truncated."""
+    J, M, T = 2048, 2, 256
+    args = [torch.zeros((1, J), dtype=torch.int32, device=card),
+            torch.zeros((1, J, M), device=card),
+            torch.zeros((1, J), device=card),
+            torch.zeros((J,), dtype=torch.int32, device=card),
+            torch.zeros((J, J), dtype=torch.bool, device=card),
+            torch.ones((M,), device=card)]
+    n = kernel.sgs_decode.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.sgs_decode(*args, T=T)
+    assert kernel.sgs_decode.launches == n
+    assert not kernel.geometry(1, J, M, T, 1)[3]
 
 
 @pytest.mark.parametrize("shared", [False, True], ids=["isolated", "shared"])

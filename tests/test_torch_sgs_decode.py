@@ -52,7 +52,11 @@ def test_ref_property(seed, B, J, M, T):
     _assert_exact(random_instance(rng, B, J, M, T), T)
 
 
-@pytest.mark.parametrize("G,rows,J,M,T", [(3, 4, 9, 2, 64), (5, 2, 16, 3, 128)])
+@pytest.mark.parametrize("G,rows,J,M,T", [
+    (3, 4, 9, 2, 64), (5, 2, 16, 3, 128),
+    # narrow versions of _decode_cases.MAIN_PATH_SHAPES: isolated, shared,
+    # an odd group size at J > 32
+    (2, 8, 14, 2, 256), (1, 4, 224, 2, 256), (3, 5, 40, 2, 100)])
 def test_grouped_ref_matches_per_group_jax(G, rows, J, M, T):
     """Row b reads group b // rows: one grouped call == G JAX calls."""
     rng = np.random.default_rng(G * 100 + J)
