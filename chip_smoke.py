@@ -15,12 +15,14 @@ Phases, each failing loudly (no phase's failure is caught):
    ``sgs_decode`` bit for bit on the instances of the decode tests
    (``tests/_decode_cases.py``: the random sweep, the edge cases, grouped
    G > 1 calls, J = 300, and the main path's isolated and shared shapes
-   with an odd group size at J > 32); ``sched_violation`` on
-   the shapes of ``tests/test_kernels.py`` in float32 and bfloat16 (rtol
-   2e-5, atol 2e-4; zero at caps 1e9, never negative); ``usl_runtime`` on
-   that file's shapes in float32 and bfloat16 (rtol 1e-5, atol 1e-5); and
-   small vectorized and ising solves whose plans must not depend on which
-   of the two routes ran;
+   with an odd group size at J > 32); ``sched_violation`` bit for bit on
+   the shapes of ``tests/test_kernels.py``, the ising engine's shapes and
+   the largest grids of its envelope, in float32 and bfloat16, with
+   ``dem`` contiguous and as the ising loop passes it, a transposed view
+   (zero at caps 1e9, never negative); ``usl_runtime`` on
+   ``tests/test_kernels.py``'s shapes in float32 and bfloat16 (rtol 1e-5,
+   atol 1e-5); and small vectorized and ising solves whose plans must not
+   depend on which of the two routes ran;
 3. main path — ``Agora(..., solver="vectorized", vec_cfg=VecConfig())``
    (256 chains, 600 sweeps, 256 time bins) serves an isolated session and
    a shared-capacity session (bucket 16: warm up, then two batches of 16
@@ -36,8 +38,16 @@ Phases, each failing loudly (no phase's failure is caught):
    ``sched_violation`` kernel must have run iters + 1 times per solve.
 
 The inputs of one kernel call of each session are captured, checked
-against the plain version and timed; ``usl_runtime``, which no path
-calls, is timed on a grid of 4096 tasks x 256 configurations.
+against the plain version and timed: ``sched_violation`` as the ising
+loop passes them (a transposed ``dem`` view, read through its strides)
+and, on an earlier line, contiguous and in the kernel's general layout
+(K = 0) beside the bin-major one ``geometry`` picks; beside them the
+device time of an empty launch and of a launch with no tasks.
+``usl_runtime``, which no path calls, is timed on a grid of 4096 tasks x
+256 configurations of contiguous float32 inputs, so that the call runs
+no copy kernel; each timed call's PyTorch ops are recorded and the run
+fails if one of them copies. The build fails if ptxas reports a spill in
+``sched_violation``'s kernels.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and, as the last line, {"ok": true, "device": {...}}. Exits
@@ -47,8 +57,10 @@ sources are not beside this script, or when any check fails.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +95,25 @@ def gpu_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(report: str):
+    """(entry, registers, spill store bytes, spill load bytes) of each
+    kernel in an ``nvcc -Xptxas -v`` report."""
+    out, entry, spill = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), *spill))
+            entry, spill = None, (0, 0)
+    return out
 
 
 # --- measurement helpers ---------------------------------------------------
@@ -254,9 +285,28 @@ def profile_solve(name, sess, batch, unprofiled_s) -> None:
         f"{unprofiled_s * 1e3:.1f} ms unprofiled; device busy {busy_ms:.1f} "
         f"ms; idle share {1 - busy_ms / (unprofiled_s * 1e3):.3f} of the "
         f"unprofiled wall time")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the top 8, and the port's own kernels wherever they rank
+    for e in ranked[:8] + [e for e in ranked[8:]
+                           if any(f"{k}_kernel" in e.key for k in KERNELS)]:
         log(f"[profile {name}]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d} x {e.key[:70]}")
+
+
+def check_no_copy(what, fn) -> None:
+    """Record the PyTorch ops one call of ``fn`` runs (torch.profiler, CPU
+    side) and fail if one of them copies (``aten::copy_``, ``clone``,
+    ``_to_copy``): no copy or cast kernel hides in a timed call. The
+    kernel itself is launched through ctypes and is not an op."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    names = sorted({e.key for e in prof.key_averages()})
+    copies = [n for n in names if "copy" in n or "clone" in n]
+    if copies:
+        fail(f"{what}: the timed call copies its inputs ({copies})")
+    log(f"[no copy] {what}: the timed call runs the ops {names}, none of "
+        f"them a copy")
 
 
 def main(argv=None) -> int:
@@ -279,7 +329,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import numpy as np
-    from _decode_cases import (SCHED_SHAPES, USL_SHAPES, kernel_cases,
+    from _decode_cases import (SCHED_ENVELOPE_SHAPES, SCHED_MAIN_SHAPES,
+                               SCHED_SHAPES, USL_SHAPES, kernel_cases,
                                sched_instance, usl_instance)
 
     from repro_torch.cluster.catalog import alibaba_cluster, paper_cluster
@@ -311,10 +362,29 @@ def main(argv=None) -> int:
         log(f"[build] {KERNELS[name][0]} -> {os.path.relpath(lib, ROOT)} "
             f"(nvcc {_build.seconds[name]:.2f} s)")
         report = lib.with_suffix(".log")
-        if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    log(f"[build] {name}: {line.strip()}")
+        entries = ptxas_kernels(report.read_text()) if report.exists() else []
+        if name != "sched_violation":
+            for entry, regs, st, ld in entries:
+                log(f"[build] {name}: {entry[:60]}: {regs} registers, spill "
+                    f"stores {st} B, loads {ld} B")
+            continue
+        # one kernel per (C cells a lane, K bins a row, MM resources)
+        if not entries:
+            fail("no ptxas report for sched_violation")
+        shown = []
+        for entry, regs, st, ld in entries:
+            m = re.search(r"kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
+            shown.append(f"<{','.join(m.groups()) if m else entry}> {regs}")
+            if st or ld:
+                fail(f"ptxas spills in sched_violation {entry}: stores {st} "
+                     f"B, loads {ld} B")
+        most = max(regs for _, regs, _, _ in entries)
+        log(f"[build] sched_violation: {len(entries)} kernels <C,K,MM> "
+            f"registers: {', '.join(shown)}; no spills; at most {most} "
+            f"registers x {sv_kernel.MAX_THREADS} threads a block")
+        if most * sv_kernel.MAX_THREADS > 65536:
+            fail(f"sched_violation: {most} registers a thread do not fit "
+                 f"{sv_kernel.MAX_THREADS} threads in one SM's 64 K")
 
     # 2. kernels against their plain versions, on the card -------------------
     def on_card(args):
@@ -328,32 +398,39 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"[parity] {len(cases)} decode instances: kernel == plain version")
 
+    sched_shapes = SCHED_SHAPES + SCHED_MAIN_SHAPES + SCHED_ENVELOPE_SHAPES
     sched_err = 0.0
-    exact = True
     for dtype in (torch.float32, torch.bfloat16):
-        for B, J, M, T in SCHED_SHAPES:
-            start, dur, dem, caps = on_card(sched_instance(B, J, M, T))
-            start, dur, dem = (x.to(dtype) for x in (start, dur, dem))
-            got = ops.sched_violation(start, dur, dem, caps, T=T,
-                                      use_kernel=True)
-            want = ops.sched_violation(start, dur, dem, caps, T=T,
-                                       use_kernel=False)
-            sched_err = max(sched_err, close_outputs(
-                f"sched_violation {(B, J, M, T)} {dtype}", got, want,
-                rtol=2e-5, atol=2e-4))
-            exact = exact and torch.equal(got, want)
-            if (got < 0).any():
-                fail(f"sched_violation {(B, J, M, T)}: negative violation")
-            free = ops.sched_violation(start, dur, dem,
-                                       torch.full_like(caps, 1e9), T=T,
-                                       use_kernel=True)
-            if (free != 0).any():
-                fail(f"sched_violation {(B, J, M, T)}: nonzero violation at "
-                     f"caps 1e9")
+        for B, J, M, T in sched_shapes:
+            start, dur, dem, caps = sched_instance(B, J, M, T)
+            start, dur, caps = on_card([start, dur, caps])
+            # dem contiguous, and as the ising loop passes it: a (B, M, J)
+            # view of a (B, J, M) tensor
+            views = (torch.from_numpy(dem).to(dev), torch.from_numpy(
+                np.ascontiguousarray(dem.transpose(0, 2, 1))).to(dev)
+                .transpose(1, 2))
+            for layout, dm in zip(("contiguous", "transposed"), views):
+                what = f"sched_violation {(B, J, M, T)} {dtype} {layout}"
+                s_, d_, dm = (x.to(dtype) for x in (start, dur, dm))
+                got = ops.sched_violation(s_, d_, dm, caps, T=T,
+                                          use_kernel=True)
+                want = ops.sched_violation(s_, d_, dm.contiguous(), caps,
+                                           T=T, use_kernel=False)
+                sched_err = max(sched_err, close_outputs(
+                    what, got, want, rtol=2e-5, atol=2e-4))
+                if not torch.equal(got, want):
+                    fail(f"{what}: kernel differs from its plain version")
+                if (got < 0).any():
+                    fail(f"{what}: negative violation")
+                free = ops.sched_violation(s_, d_, dm,
+                                           torch.full_like(caps, 1e9), T=T,
+                                           use_kernel=True)
+                if (free != 0).any():
+                    fail(f"{what}: nonzero violation at caps 1e9")
     torch.cuda.synchronize()
-    log(f"[parity] sched_violation on {len(SCHED_SHAPES)} shapes x "
-        f"(float32, bfloat16): within rtol 2e-5, atol 2e-4 of the plain "
-        f"version (max abs err {sched_err}, bit for bit: {exact}); zero at "
+    log(f"[parity] sched_violation on {len(sched_shapes)} shapes x "
+        f"(float32, bfloat16) x (dem contiguous, transposed view): bit for "
+        f"bit equal to the plain version (max abs err {sched_err}); zero at "
         f"caps 1e9, never negative")
 
     usl_err = 0.0
@@ -565,29 +642,60 @@ def main(argv=None) -> int:
         entry(f"sgs_decode[{name}]", results[name]["launches"], err, ms,
               plain_ms, bound_ms, bound_by)
 
+    empty_ms = kernel_ms(lambda: torch.cuda._sleep(0), 200)
+    log(f"[launch floor] an empty kernel (torch.cuda._sleep(0)), back to "
+        f"back: {empty_ms:.5f} ms/launch on the device")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name in ("isolated", "shared"):
         args, T = results[f"ising-{name}"]["captured"]
         if args is None:
             fail(f"ising-{name}: no sched_violation call captured")
-        k_args = [x.float().contiguous() for x in args]
+        B, M, J = args[2].shape
         got = ops.sched_violation(*args, T=T, use_kernel=True)
         want = ops.sched_violation(*args, T=T, use_kernel=False)
         err = close_outputs(f"sched_violation[{name}]", got, want,
                             rtol=2e-5, atol=2e-4)
-        call_ms = time_ms(lambda: sv_kernel.sched_violation(*k_args, T=T),
+        if not torch.equal(got, want):
+            fail(f"sched_violation[{name}]: kernel differs from its plain "
+                 f"version on the captured inputs")
+        R, W, C, K, N = sv_kernel.geometry(B, M, T, sms)
+        k_args = [x.float().contiguous() for x in args]
+        contig_ms = kernel_ms(lambda: sv_kernel.sched_violation(*k_args,
+                                                                T=T), 200)
+        # the general layout (K = 0) on the same inputs, for the layout
+        # choice; these launches are not on the path
+        general = sv_kernel.sched_violation(*args, T=T, geom=(R, W, C, 0))
+        if not torch.equal(general, got):
+            fail(f"sched_violation[{name}]: the general layout differs "
+                 f"from the bin-major one")
+        general_ms = kernel_ms(lambda: sv_kernel.sched_violation(
+            *args, T=T, geom=(R, W, C, 0)), 200)
+        log(f"[ising-{name}] sched_violation B {B} J {J} M {M} T {T}: R "
+            f"{R} candidates a block, W {W} warps a candidate, C {C} cells "
+            f"a lane, layout K {K} (N {N}); on contiguous inputs "
+            f"{contig_ms:.5f} ms/launch on the device; the general layout "
+            f"(K 0) as passed {general_ms:.5f} ms/launch; dem as the ising "
+            f"loop passes it has strides {tuple(args[2].stride())}")
+        none = [torch.zeros((B, 0), device=dev), torch.zeros((B, 0),
+                device=dev), torch.zeros((B, M, 0), device=dev), args[3]]
+        no_task_ms = kernel_ms(lambda: sv_kernel.sched_violation(*none, T=T),
+                               200)
+        # timed as the ising loop passes the inputs: no copy of dem
+        call_ms = time_ms(lambda: sv_kernel.sched_violation(*args, T=T),
                           reps=200)
-        ms = kernel_ms(lambda: sv_kernel.sched_violation(*k_args, T=T),
-                       200)
+        ms = kernel_ms(lambda: sv_kernel.sched_violation(*args, T=T), 200)
         plain_ms = time_ms(lambda: ops.sched_violation(*args, T=T,
                                                        use_kernel=False),
                            reps=5)
         bound_ms, bound_by, nbytes, nops = sched_bound(args, T)
-        B, M, J = args[2].shape
-        log(f"[ising-{name}] sched_violation B {B} J {J} M {M} T {T}: "
-            f"kernel {ms:.4f} ms/launch on the device ({call_ms:.4f} ms "
-            f"per call as launched), plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.6f} ms ({bound_by}; {nbytes} B, {nops} ops), max "
-            f"abs err {err}")
+        log(f"[ising-{name}] sched_violation as passed: kernel {ms:.5f} "
+            f"ms/launch on the device ({call_ms:.4f} ms per call as "
+            f"launched), plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}; {nbytes} B, {nops} ops), launch floor: "
+            f"{no_task_ms:.5f} ms with no tasks, {empty_ms:.5f} ms empty; "
+            f"max abs err {err}")
+        check_no_copy(f"sched_violation[{name}]",
+                      lambda: sv_kernel.sched_violation(*args, T=T))
         entry(f"sched_violation[{name}]", results[f"ising-{name}"]["launches"],
               err, ms, plain_ms, bound_ms, bound_by)
 
@@ -595,24 +703,36 @@ def main(argv=None) -> int:
     path_launches = usl_kernel.usl_runtime.launches
     rng = np.random.default_rng(0)
     shape = (4096, 256)
-    grid = on_card([np.asarray(x, np.float32) for x in (
-        np.broadcast_to(rng.integers(1, 257, (1, 256)), shape),
-        rng.uniform(0, 0.2, shape), rng.uniform(0, 0.01, shape),
-        rng.uniform(0.5, 3, shape), rng.uniform(10, 1000, shape))])
+    draws = (np.broadcast_to(rng.integers(1, 257, (1, 256)), shape),
+             rng.uniform(0, 0.2, shape), rng.uniform(0, 0.01, shape),
+             rng.uniform(0.5, 3, shape), rng.uniform(10, 1000, shape))
+    # C-contiguous float32 (numpy's cast of the broadcast is column-major),
+    # so the wrapper's .contiguous() runs no copy kernel in a timed call
+    grid = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            for x in draws]
     got = ops.usl_runtime(*grid, use_kernel=True)
     err = close_outputs("usl_runtime[grid]", got,
                         ops.usl_runtime(*grid, use_kernel=False),
                         rtol=1e-5, atol=1e-5)
-    call_ms = time_ms(lambda: usl_kernel.usl_runtime(*grid), reps=200)
-    ms = kernel_ms(lambda: usl_kernel.usl_runtime(*grid), 200)
+    # six copies of the grid's 20 MB of inputs: the five calls between two
+    # reads of one copy touch 120 MB with their outputs, against the 50 MB
+    # L2, so each call of the rotation reads its inputs from HBM, as the
+    # bound counts them
+    grids = itertools.cycle([grid] + [[x.clone() for x in grid]
+                                      for _ in range(5)])
+    call_ms = time_ms(lambda: usl_kernel.usl_runtime(*next(grids)), reps=200)
+    ms = kernel_ms(lambda: usl_kernel.usl_runtime(*next(grids)), 200)
+    hot_ms = kernel_ms(lambda: usl_kernel.usl_runtime(*grid), 200)
     plain_ms = time_ms(lambda: ops.usl_runtime(*grid, use_kernel=False),
                        reps=50)
     bound_ms, bound_by, nbytes, nops = usl_bound(got.numel())
-    log(f"[usl_runtime] grid {shape}: kernel {ms:.4f} ms/launch on the "
-        f"device ({call_ms:.4f} ms per call as launched), plain "
+    check_no_copy("usl_runtime[grid]", lambda: usl_kernel.usl_runtime(*grid))
+    log(f"[usl_runtime] grid {shape}, contiguous float32: kernel {ms:.5f} "
+        f"ms/launch on the device from HBM, {hot_ms:.5f} ms with the inputs "
+        f"in L2 ({call_ms:.4f} ms per call as launched), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; {nbytes} "
-        f"B, {nops} ops), max abs err {err}; launches on the paths "
-        f"{path_launches}")
+        f"B, {nops} ops), {bound_ms / ms:.2f} of the bound; max abs err "
+        f"{err}; launches on the paths {path_launches}")
     entry("usl_runtime[grid]", path_launches, err, ms, plain_ms, bound_ms,
           bound_by)
 

@@ -83,6 +83,15 @@ SCHED_SHAPES = [(1, 1, 1, 16), (4, 7, 4, 100), (8, 33, 2, 256),
                 (2, 130, 3, 300), (16, 5, 1, 64), (3, 128, 8, 128)]
 USL_SHAPES = [(1,), (100,), (7, 13), (1025,), (4, 8, 32)]
 
+# sched_violation (B, J, M, T) beyond tests/test_kernels.py: the ising
+# engine's isolated and shared shapes at IsingConfig() defaults; the
+# largest grids of the kernel's envelope (M 8 x T 300 pads to 4096 cells,
+# M 8 x T 512 is 4096 cells); and grids whose T is a multiple of 32 W but
+# no power of two times it (T 96, 192, 288), which take the general layout
+SCHED_MAIN_SHAPES = [(512, 10, 2, 256), (512, 166, 2, 256)]
+SCHED_ENVELOPE_SHAPES = [(16, 40, 8, 300), (4, 33, 8, 512), (8, 33, 2, 96),
+                         (8, 33, 2, 192), (4, 20, 1, 288)]
+
 
 def sched_instance(B, J, M, T):
     """start, dur (B, J), dem (B, M, J), caps (M,) float32, seeded as

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _decode_cases import (MAIN_PATH_SHAPES, SCHED_SHAPES, USL_SHAPES,
+from _decode_cases import (MAIN_PATH_SHAPES, SCHED_ENVELOPE_SHAPES,
+                           SCHED_MAIN_SHAPES, SCHED_SHAPES, USL_SHAPES,
                            kernel_cases, sched_instance, usl_instance)
 from repro_torch.cluster.catalog import alibaba_cluster
 from repro_torch.cluster.workloads import synth_trace
@@ -126,6 +127,69 @@ def test_sched_violation_kernel_matches_plain_exactly(card, B, J, M, T,
     assert torch.equal(free, torch.zeros_like(free))
 
 
+@pytest.mark.parametrize("transposed", [False, True],
+                         ids=["contiguous", "transposed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,J,M,T", SCHED_MAIN_SHAPES + SCHED_ENVELOPE_SHAPES)
+def test_sched_violation_path_and_envelope_shapes_exactly(card, B, J, M, T,
+                                                          dtype, transposed):
+    """The ising engine's shapes and the envelope's largest grids, with dem
+    contiguous or as the ising loop passes it: a (B, M, J) view of a (B, J,
+    M) tensor, read through its strides."""
+    start, dur, dem, caps = sched_instance(B, J, M, T)
+    start, dur, caps = (torch.from_numpy(x).to(card) for x in
+                        (start, dur, caps))
+    if transposed:
+        bjm = torch.empty((B, J, M), device=card)
+        bjm.copy_(torch.from_numpy(dem).to(card).transpose(1, 2))
+        dem = bjm.transpose(1, 2)
+        assert dem.stride() == (J * M, 1, M)
+    else:
+        dem = torch.from_numpy(dem).to(card)
+    start, dur, dem = (x.to(dtype) for x in (start, dur, dem))
+    got = ops.sched_violation(start, dur, dem, caps, T=T)
+    want = ops.sched_violation(start, dur, dem.contiguous(), caps, T=T,
+                               use_kernel=False)
+    torch.cuda.synchronize()
+    assert got.shape == (B,) and torch.equal(got, want)
+    assert (got > 0).any()
+    free = ops.sched_violation(start, dur, dem, torch.full_like(caps, 1e9),
+                               T=T)
+    assert torch.equal(free, torch.zeros_like(free))
+
+
+@pytest.mark.parametrize("B,J,M,T", [
+    s for s in SCHED_SHAPES + SCHED_MAIN_SHAPES + SCHED_ENVELOPE_SHAPES
+    if sv_kernel.geometry(s[0], s[2], s[3], 132)[3]])
+def test_sched_violation_general_layout_equals_bin_major(card, B, J, M, T):
+    """Where ``geometry`` picks the bin-major layout (K > 0), the general
+    layout (K = 0) at the same R, W, C gives the same bits."""
+    start, dur, dem, caps = (torch.from_numpy(x).to(card)
+                             for x in sched_instance(B, J, M, T))
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    R, W, C, K, _ = sv_kernel.geometry(B, M, T, sms)
+    assert K > 0
+    got = sv_kernel.sched_violation(start, dur, dem, caps, T=T,
+                                    geom=(R, W, C, 0))
+    want = sv_kernel.sched_violation(start, dur, dem, caps, T=T)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,T", [(1, 4097), (9, 16)])
+def test_sched_violation_refuses_grid_beyond_envelope(card, M, T):
+    """One cell past the envelope (M * T = 4097), or a ninth resource,
+    raises before any launch; nothing is truncated."""
+    B, J = 4, 3
+    args = [torch.zeros((B, J), device=card), torch.ones((B, J), device=card),
+            torch.ones((B, M, J), device=card), torch.ones((M,), device=card)]
+    n = sv_kernel.sched_violation.launches
+    with pytest.raises(ValueError, match="envelope"):
+        ops.sched_violation(*args, T=T)
+    assert sv_kernel.sched_violation.launches == n
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", USL_SHAPES)
@@ -140,11 +204,10 @@ def test_usl_runtime_kernel_matches_plain_exactly(card, shape, dtype):
     assert tuple(got.shape) == shape and torch.equal(got, want)
 
 
-def test_ising_same_plan_either_route(card):
+def _ising_same_plan_either_route(card, cfg):
     cluster = alibaba_cluster(machines=20)
     dag = synth_trace(3, cluster, seed=1)[0]
     prob = tdag.flatten([dag], cluster.num_resources)
-    cfg = ising.IsingConfig(chains=32, iters=100, seed=0)
     tape = ising.ising_tape(prob.option_arrays()[3], cfg, card)
     n = sv_kernel.sched_violation.launches
     sols = [ising.ising_anneal(prob, cluster, Goal.balanced(),
@@ -157,3 +220,17 @@ def test_ising_same_plan_either_route(card):
     np.testing.assert_array_equal(a.start, b.start)
     np.testing.assert_array_equal(a.finish, b.finish)
     assert a.energy == b.energy
+
+
+def test_ising_same_plan_either_route(card):
+    _ising_same_plan_either_route(card, ising.IsingConfig(chains=32,
+                                                          iters=100, seed=0))
+
+
+@pytest.mark.parametrize("grid", [96, 192])
+def test_ising_same_plan_either_route_off_grid(card, grid):
+    """A grid of T bins that is no power-of-two multiple of 32 W takes the
+    kernel's general layout (``geometry``'s K = 0) on the ising path."""
+    cfg = ising.IsingConfig(chains=32, iters=100, seed=0, grid=grid)
+    assert sv_kernel.geometry(cfg.chains, 2, grid, 132)[3] == 0
+    _ising_same_plan_either_route(card, cfg)

@@ -15,9 +15,11 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.sched_energy import sched_violation as j_sched_pallas
-from _decode_cases import (SCHED_SHAPES, USL_SHAPES, sched_instance,
+from _decode_cases import (SCHED_ENVELOPE_SHAPES, SCHED_MAIN_SHAPES,
+                           SCHED_SHAPES, USL_SHAPES, sched_instance,
                            usl_instance)
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sched_violation as sv_kernel
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -64,6 +66,111 @@ def test_pairwise_sum_is_a_sum(n):
                          .astype(np.float32))
     np.testing.assert_allclose(ref.pairwise_sum(x).numpy(),
                                x.double().sum(dim=1).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("B", [1, 16, 512, 4096])
+def test_sched_violation_geometry_covers_envelope(B, sms):
+    """For every grid of the envelope (M <= 8, M * T <= 4096): a block of
+    at most 512 threads (the kernel's limit, within 1024), the lanes'
+    registers cover exactly the padded grid, and more than one candidate a
+    block only while every SM still gets a block."""
+    for M in range(1, sv_kernel.MAX_M + 1):
+        for T in range(1, sv_kernel.MAX_CELLS // M + 1):
+            R, W, C, K, N = sv_kernel.geometry(B, M, T, sms)
+            assert N & (N - 1) == 0 and max(128, M * T) <= N <= 4096
+            assert N < 2 * max(128, M * T)
+            assert C in (4, 8, 16) and W & (W - 1) == 0
+            assert W * 32 * C == N
+            assert R * W * 32 <= sv_kernel.MAX_THREADS <= 1024
+            assert R == 1 or -(-B // R) >= sms
+            assert K == 0 or (T == 32 * W * K and K & (K - 1) == 0
+                              and M * K <= C)
+
+
+@pytest.mark.parametrize("M,T", [(9, 1), (1, 4097), (8, 513), (2, 0)])
+def test_sched_violation_geometry_refuses_beyond_envelope(M, T):
+    with pytest.raises(ValueError, match="envelope"):
+        sv_kernel.geometry(512, M, T, 132)
+
+
+def test_sched_violation_geometry_of_ising_shape():
+    """The ising engine's (B 512, M 2, T 256) on 132 SMs: one warp of 16
+    cells a lane per candidate, two candidates a block, 256 blocks."""
+    assert sv_kernel.geometry(512, 2, 256, 132) == (2, 1, 16, 8, 512)
+
+
+@pytest.mark.parametrize("M,T,K", [(2, 256, 8), (4, 256, 4), (8, 512, 2),
+                                   (1, 128, 4), (2, 96, 0), (2, 192, 0),
+                                   (1, 288, 0), (3, 300, 0)])
+def test_sched_violation_geometry_layout(M, T, K):
+    """Bin-major (K > 0) exactly where T = 32 W K with K a power of two,
+    as the kernel has it; the general layout (K = 0) for any other T."""
+    assert sv_kernel.geometry(512, M, T, 132)[3] == K
+
+
+def _kernel_order_sum(x: torch.Tensor, W: int, C: int) -> torch.Tensor:
+    """The CUDA kernel's sum of x (B, N), N = 32 W C, in plain torch: cell
+    c = 32 w + l + 32 W i is register i of lane l of warp w. Register
+    levels (i += i + h), then warp levels (warp k += warp k + h, through
+    shared memory), then five ``__shfl_down_sync`` levels, where a lane
+    with no source lane gets its own value back."""
+    B, N = x.shape
+    assert N == 32 * W * C
+    v = x.reshape(B, C, W, 32)                         # [b, i, w, l]
+    h = C // 2
+    while h:
+        v = torch.cat([v[:, :h] + v[:, h:2 * h], v[:, h:]], dim=1)
+        h //= 2
+    v = v[:, 0]                                        # (B, W, 32)
+    h = W // 2
+    while h:
+        v = torch.cat([v[:, :h] + v[:, h:2 * h], v[:, h:]], dim=1)
+        h //= 2
+    v = v[:, 0]                                        # (B, 32)
+    lane = torch.arange(32)
+    for h in (16, 8, 4, 2, 1):
+        src = torch.where(lane + h < 32, lane + h, lane)
+        v = v + v[:, src]
+    return v[:, 0]
+
+
+@pytest.mark.parametrize("N", [32 << k for k in range(8)])
+def test_sched_violation_kernel_order_is_pairwise_sum(N):
+    """Every lane layout 32 W C = N (a superset of what ``geometry`` picks)
+    sums in ``ref.pairwise_sum``'s order, bit for bit, on float32 data of
+    mixed signs and magnitudes from 1e-30 to 1e30."""
+    rng = np.random.default_rng(N)
+    x = (rng.uniform(-1, 1, (64, N))
+         * 10.0 ** rng.uniform(-30, 30, (64, N))).astype(np.float32)
+    x[:, rng.integers(0, N, N // 4)] = 0.0
+    x = torch.from_numpy(x)
+    want = ref.pairwise_sum(x)
+    for W in (1 << k for k in range(6)):
+        if N % (32 * W) == 0:
+            got = _kernel_order_sum(x, W, N // (32 * W))
+            assert torch.equal(got, want), (N, W)
+
+
+@pytest.mark.parametrize("B,J,M,T", SCHED_SHAPES + SCHED_MAIN_SHAPES
+                         + SCHED_ENVELOPE_SHAPES)
+def test_sched_violation_padding_is_exact(B, J, M, T):
+    """The kernel pads the excess grid with +0 to geometry's N, past the
+    power of two above M * T where that is under 128 cells; the kernel's
+    order over the padded grid equals ``pairwise_sum`` over the unpadded
+    one, for each lane layout geometry picks on 132 or 114 SMs."""
+    start, dur, dem, caps = (torch.from_numpy(x)
+                             for x in sched_instance(B, J, M, T))
+    end = start + dur
+    t = torch.arange(T, dtype=torch.float32)
+    mask = ((t >= start[:, :, None]) & (t < end[:, :, None])).float()
+    usage = torch.einsum("bmj,bjt->bmt", dem, mask)
+    over = torch.clamp(usage - caps[None, :, None], min=0.0).reshape(B, -1)
+    want = ref.pairwise_sum(over)
+    for sms in (132, 114):
+        _, W, C, _, N = sv_kernel.geometry(B, M, T, sms)
+        padded = torch.nn.functional.pad(over, (0, N - M * T))
+        assert torch.equal(_kernel_order_sum(padded, W, C), want)
 
 
 @pytest.mark.parametrize("shape", USL_SHAPES)
