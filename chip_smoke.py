@@ -35,7 +35,29 @@ Phases, each failing loudly (no phase's failure is caught):
    session (warm up, then one batch of 16 DAGs, one solve per DAG), a
    shared-capacity session (16 tenants released at t = 0: one joint
    problem) and one quickstart plan, with the same checks; the
-   ``sched_violation`` kernel must have run iters + 1 times per solve.
+   ``sched_violation`` kernel must have run iters + 1 times per solve;
+5. control plane (``repro_torch.flow``, ``repro_torch.launch``) at
+   ``VecConfig()`` on ``alibaba_cluster(machines=20)``: (a) a
+   ``PlannerService`` with a shared and an isolated pool (bucket 16,
+   ``max_batch=16``, deadline flush) warms both pools at once on threads
+   of their own from an empty build directory (``sgs_decode`` must be
+   compiled once), then serves two rounds of 16 ``synth_trace`` DAGs per
+   pool (seeds 3 and 5; 4 guaranteed with feasible deadlines, 8 standard,
+   4 best effort), 4 of them through ``POST /v1/plan``, and sheds one
+   guaranteed request with an infeasible deadline; every plan validates,
+   no signature is new after warmup, every submission's causal chain is
+   complete, ``/v1/stats`` and ``/v1/metrics`` answer, and the decode
+   kernel ran iters + 1 times per dispatch at least; (b) an ising-backed
+   service serves a burst of 16 in one joint solve (``sched_violation``
+   iters + 1 times); (c) ``StreamingRunner`` on two Poisson draws of 16
+   tenants with mixed SLA classes, SLA-aware and FIFO: the guaranteed hit
+   rate SLA-aware must be strictly above FIFO, with no capacity
+   violation, and arrivals inside the live bucket run no new signature;
+   (d) solver errors on the shared pool: availability 1.0 with degraded
+   serving (the breaker opens), below 1.0 fail-fast; (e) ``python -m
+   repro_torch.launch.serve_planner`` in a subprocess with its default
+   flags serves ``/healthz``, a plan and ``/v1/stats``, exits cleanly on
+   SIGINT, and ``obs_report`` reads its event tape.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
@@ -49,8 +71,10 @@ no copy kernel; each timed call's PyTorch ops are recorded and the run
 fails if one of them copies. The build fails if ptxas reports a spill in
 ``sched_violation``'s kernels.
 
-Prints the card's name and power limit, one JSON line with the kernels'
-numbers, and, as the last line, {"ok": true, "device": {...}}. Exits
+Prints the card's name and power limit, the control plane's numbers
+(warmup, dispatch and submit-to-result seconds, hit rates, availability)
+beside them, one JSON line with the kernels' numbers, and, as the last
+line, {"ok": true, "device": {...}}. Exits
 non-zero without that line when CUDA is not available, when the port's
 sources are not beside this script, or when any check fails.
 """
@@ -61,6 +85,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -307,6 +332,458 @@ def check_no_copy(what, fn) -> None:
         fail(f"{what}: the timed call copies its inputs ({copies})")
     log(f"[no copy] {what}: the timed call runs the ops {names}, none of "
         f"them a copy")
+
+
+# --- phase 5: the control plane ---------------------------------------------
+
+SLA_MIX = (("guaranteed", 4), ("standard", 8), ("best_effort", 4))
+
+
+def synth_stream(cluster, sess, tenants, seed, arrival_mean=300.0,
+                 budget=1.5):
+    """Poisson tenant arrivals of ``synth_trace`` DAGs with mixed SLA
+    classes (35% guaranteed, 30% standard, 35% best effort), shaped like
+    ``benchmarks/bench_streaming.py:poisson_stream``. A guaranteed
+    tenant's deadline gives ``budget`` times its critical path of
+    best-case durations (``session.admit``'s bound) past its arrival."""
+    import numpy as np
+    from repro_torch.cluster.workloads import synth_trace
+    from repro_torch.core.session import PlanRequest
+    from repro_torch.flow.streaming import (SLA_BEST_EFFORT, SLA_GUARANTEED,
+                                            SLA_STANDARD, TenantRequest)
+    rng = np.random.default_rng(seed)
+    reqs, t = [], 0.0
+    for dag in synth_trace(tenants, cluster, seed=seed):
+        t += float(rng.exponential(arrival_mean))
+        dag.release_time = t
+        u = float(rng.random())
+        if u < 0.35:
+            lb = sess.admit(PlanRequest(dag=dag),
+                            now=t).completion_lower_bound
+            reqs.append(TenantRequest(dag, sla=SLA_GUARANTEED,
+                                      deadline=t + budget * (lb - t)))
+        elif u < 0.65:
+            reqs.append(TenantRequest(dag, sla=SLA_STANDARD))
+        else:
+            reqs.append(TenantRequest(dag, sla=SLA_BEST_EFFORT))
+    return reqs
+
+
+async def http_call(port, method, path, body=None):
+    """One HTTP/1.1 request to 127.0.0.1:port -> (status, body bytes)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = b"" if body is None else json.dumps(body).encode()
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: localhost\r\n"
+                 f"Content-Length: {len(payload)}\r\n\r\n".encode() + payload)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, data = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), data
+
+
+def control_plane(dev, gpu, cfg, icfg) -> None:
+    """Phase 5: the port's daemon (two pools warmed concurrently on an
+    empty build directory, 64 requests of mixed SLA classes over two
+    rounds, four through HTTP, one infeasible), an ising-backed service,
+    the streaming runner SLA-aware and FIFO, the chaos plane with and
+    without degraded serving, and the CLI in a subprocess."""
+    import asyncio
+    import dataclasses as dc
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster.catalog import alibaba_cluster
+    from repro_torch.cluster.workloads import synth_trace
+    from repro_torch.core.agora import Agora
+    from repro_torch.core.objectives import Goal
+    from repro_torch.core.session import SLA_GUARANTEED, PlanRequest
+    from repro_torch.flow.chaos import ChaosConfig
+    from repro_torch.flow.daemon import (DaemonConfig, LoadShedError,
+                                         PlannerHTTPServer, PlannerService,
+                                         PlanServiceError, PoolSpec,
+                                         dag_to_json)
+    from repro_torch.flow.executor import FlowConfig
+    from repro_torch.flow.streaming import (StreamConfig, StreamingRunner,
+                                            capacity_violations,
+                                            deadline_hit_rate)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sched_violation as sv_kernel
+    from repro_torch.kernels import sgs_decode as kernel
+    from repro_torch.launch.serve_planner import demo_template
+    from repro_torch.obs.sink import RingSink
+    from repro_torch.obs.trace import chain_complete, spans, trace_ids
+
+    c20 = alibaba_cluster(machines=20)
+    agora = Agora(c20, goal=Goal.balanced(), solver="vectorized",
+                  vec_cfg=cfg, device=dev)
+    sets = [synth_trace(16, c20, seed=s) for s in (3, 5)]
+    for dags in sets:
+        for d in dags:
+            d.release_time = 0.0     # the daemon plans from submission
+    template = max(sets[0], key=lambda d: d.num_tasks)
+    envelope = (template.num_tasks,
+                max(len(t.options) for t in template.tasks))
+    for dags in sets:
+        if (max(d.num_tasks for d in dags),
+                max(len(t.options) for d in dags for t in d.tasks)) \
+                != envelope:
+            fail(f"[daemon] a burst leaves the template's envelope "
+                 f"{envelope}")
+
+    # 5a. the daemon -------------------------------------------------------
+    ring = RingSink(1 << 16)
+    svc = PlannerService(agora, DaemonConfig(
+        pools=(PoolSpec("shared", shared_capacity=True, bucket_p=16),
+               PoolSpec("isolated", shared_capacity=False, bucket_p=16)),
+        max_batch=16, max_wait_s=120.0, flush="deadline", sink=ring))
+    # first use of the decode kernel from the two warmup threads at once:
+    # an empty build directory, so both threads ask for a library that
+    # is not built yet
+    built = _build.BUILD_DIR
+    fresh = built / "concurrent-first-use"
+    shutil.rmtree(fresh, ignore_errors=True)
+    _build.use_build_dir(fresh)
+    compiled = _build.compiles.get("sgs_decode", 0)
+    kernel.sgs_decode.launches = 0
+    sv_kernel.sched_violation.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    futures = {name: e.session.warmup_async(template, max_p=16)
+               for name, e in svc.entries.items()}
+    warm = {name: f.result() for name, f in futures.items()}
+    warm_s = time.monotonic() - t0
+    if _build.compiles.get("sgs_decode", 0) - compiled != 1:
+        fail(f"[daemon] sgs_decode compiled "
+             f"{_build.compiles.get('sgs_decode', 0) - compiled} times by "
+             f"two concurrent warmups, expected once")
+    _build.use_build_dir(built)      # back to the libraries of phase 1
+    shutil.rmtree(fresh, ignore_errors=True)
+    log(f"[daemon] pools warmed concurrently in {warm_s:.3f} s: "
+        + ", ".join(f"{p} bucket {b} {s:.3f} s" for p, bs in warm.items()
+                    for b, s in bs.items())
+        + f"; of it nvcc of sgs_decode {_build.seconds['sgs_decode']:.2f} s "
+        f"(one compile for both threads) ({gpu})")
+    trace0 = svc.stats()["trace_count"]
+    lat = {sla: [] for sla, _ in SLA_MIX}
+    results, batches, shed = [], [], []
+
+    def request(dag, sla, pool, now):
+        kw = {}
+        if sla == SLA_GUARANTEED:
+            lb = svc.entries[pool].session.admit(
+                PlanRequest(dag=dag), now=now).completion_lower_bound
+            kw = dict(deadline=lb + 3600.0)   # feasible, far off
+        return PlanRequest(dag=dag, sla=sla, **kw)
+
+    async def timed(coro, sla):
+        t = time.monotonic()
+        res = await coro
+        lat[sla].append(time.monotonic() - t)
+        return res
+
+    async def post(port, req, pool):
+        body = {"dag": dag_to_json(req.dag), "sla": req.sla,
+                "deadline": None if not np.isfinite(req.deadline)
+                else req.deadline, "pool": pool}
+        status, data = await http_call(port, "POST", "/v1/plan", body)
+        if status != 200:
+            fail(f"[daemon] POST /v1/plan answered {status}: {data[:200]}")
+        return json.loads(data)
+
+    async def drive():
+        async with svc:
+            http = PlannerHTTPServer(svc)
+            _, port = await http.start()
+            for rnd, pools in enumerate((("shared", "isolated"),
+                                         ("isolated", "shared"))):
+                before = svc.stats_counters.batches
+                now = svc._now()
+                calls = []
+                for pool, dags in zip(pools, sets):
+                    i = 0
+                    for sla, n in SLA_MIX:
+                        for d in dags[i:i + n]:
+                            req = request(d, sla, pool, now)
+                            if rnd == 1 and pool == "shared" and \
+                                    len([c for c in calls if c[0]]) < 4 \
+                                    and sla != "best_effort":
+                                calls.append((True, sla, post(port, req,
+                                                              pool)))
+                            else:
+                                calls.append((False, sla, svc.submit(
+                                    req, pool=pool)))
+                        i += n
+                t = time.monotonic()
+                out = await asyncio.gather(*(timed(c, sla)
+                                             for _, sla, c in calls))
+                batches.append((svc.stats_counters.batches - before,
+                                time.monotonic() - t))
+                results.extend(zip([h for h, _, _ in calls], out))
+            # a guaranteed deadline no schedule can meet: shed at the door
+            bad = PlanRequest(dag=dc.replace(template, name="infeasible"),
+                              sla=SLA_GUARANTEED, deadline=svc._now() + 1.0)
+            try:
+                await svc.submit(bad, pool="shared")
+                shed.append(False)
+            except LoadShedError as exc:
+                shed.append(exc.reason)
+            status, stats = await http_call(port, "GET", "/v1/stats")
+            mstatus, metrics = await http_call(port, "GET", "/v1/metrics")
+            await http.stop()
+            return status, json.loads(stats), mstatus, metrics.decode()
+
+    status, stats, mstatus, metrics = asyncio.run(drive())
+    torch.cuda.synchronize()
+    decode_launches = kernel.sgs_decode.launches
+    via_http = sum(h for h, _ in results)
+    if len(results) != 64 or via_http != 4:
+        fail(f"[daemon] {len(results)} answers, {via_http} through HTTP")
+    for from_http, res in results:
+        errs = res["errors"] if from_http else res.validate()
+        if errs:
+            fail(f"[daemon] invalid plan: {errs[:3]}")
+        if not from_http and res.plan.joint_errors:
+            fail(f"[daemon] joint violations {res.plan.joint_errors[:3]}")
+    if not shed or shed[0] is False:
+        fail("[daemon] the infeasible guaranteed request was served")
+    if status != 200 or mstatus != 200 or \
+            "planner_served_total 64" not in metrics:
+        fail(f"[daemon] /v1/stats {status}, /v1/metrics {mstatus}")
+    if stats["served"] != 64 or stats["shed_admission"] != 1:
+        fail(f"[daemon] /v1/stats served {stats['served']}, shed "
+             f"{stats['shed_admission']}")
+    new_sigs = svc.stats()["trace_count"] - trace0
+    if new_sigs:
+        fail(f"[daemon] {new_sigs} new signatures after warmup")
+    dispatches = 2 + sum(n for n, _ in batches)      # warmups + batches
+    if decode_launches < (cfg.iters + 1) * dispatches:
+        fail(f"[daemon] sgs_decode launched {decode_launches} times for "
+             f"{dispatches} dispatches")
+    ids = trace_ids(ring.events)
+    complete = sum(chain_complete(spans(ring.events, t)) for t in ids)
+    if len(ids) != 65 or complete != len(ids):
+        fail(f"[daemon] {complete} of {len(ids)} causal chains complete "
+             f"for 65 submissions")
+    solve_s = {p: [e.data["seconds"] for e in ring.events
+                   if e.type == "plan_solved" and e.pool == p]
+               for p in svc.entries}
+    log(f"[daemon] 2 rounds x 2 pools x 16 requests, 4 through POST "
+        f"/v1/plan, 1 infeasible shed ({shed[0]}); dispatches per round "
+        f"{[n for n, _ in batches]}, round seconds "
+        f"{[round(s, 3) for _, s in batches]}; seconds per dispatch "
+        + ", ".join(f"{p} {[round(x, 3) for x in xs]}"
+                    for p, xs in solve_s.items())
+        + f"; new signatures after warmup {new_sigs}; sgs_decode launches "
+        f"{decode_launches} over {dispatches} dispatches; {complete} "
+        f"complete causal chains ({gpu})")
+    for sla, _ in SLA_MIX:
+        p50, p99 = np.percentile(lat[sla], [50, 99])
+        log(f"[daemon] submit->result {sla}: p50 {p50:.3f} s, p99 "
+            f"{p99:.3f} s over {len(lat[sla])} requests ({gpu})")
+
+    # 5b. an ising-backed service ------------------------------------------
+    isvc = PlannerService(
+        Agora(c20, goal=Goal.balanced(), solver="ising", vec_cfg=cfg,
+              device=dev),
+        DaemonConfig(pools=(PoolSpec("shared", shared_capacity=True,
+                                     bucket_p=16),),
+                     max_batch=16, max_wait_s=120.0))
+    isvc.warmup(template, max_p=16)
+    sv_kernel.sched_violation.launches = 0
+
+    async def burst():
+        async with isvc:
+            return await asyncio.gather(*(isvc.submit(PlanRequest(dag=d))
+                                          for d in sets[0]))
+
+    t0 = time.monotonic()
+    ires = asyncio.run(burst())
+    iburst_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    viol = sv_kernel.sched_violation.launches
+    for r in ires:
+        if r.validate() or r.plan.joint_errors:
+            fail(f"[ising service] invalid plan {r.request.name}")
+    if isvc.stats()["batches"] != 1 or viol != icfg.iters + 1:
+        fail(f"[ising service] {isvc.stats()['batches']} dispatches, "
+             f"sched_violation launched {viol} times (expected "
+             f"{icfg.iters + 1})")
+    log(f"[ising service] one burst of 16: one joint solve in "
+        f"{iburst_s:.3f} s; sched_violation launches {viol} ({gpu})")
+
+    # 5c. the streaming runner, SLA-aware and FIFO ---------------------------
+    sess = agora.session()
+    hits, walls, viols = {}, {}, {}
+    kernel.sgs_decode.launches = 0
+    for mode, sc in (("sla", StreamConfig(bucket_p=16)),
+                     ("fifo", StreamConfig(bucket_p=16, sla_aware=False,
+                                           replan_on_arrival=False,
+                                           overlap_rounds=False))):
+        met = total = rounds = viols[mode] = 0
+        per_draw = []
+        t0 = time.monotonic()
+        for seed in (0, 1):
+            runner = StreamingRunner(
+                agora, synth_stream(c20, sess, 16, seed),
+                FlowConfig(mode="sim", enforce_capacity=True,
+                           speculation=False, seed=seed), sc)
+            recs = runner.run()
+            s, f, d = runner.realized_intervals()
+            viols[mode] += len(capacity_violations(s, f, d, c20.caps))
+            g = [r for r in recs if r.sla == SLA_GUARANTEED]
+            met += sum(r.deadline_met for r in g)
+            total += len(g)
+            rounds += len(runner.rounds)
+            per_draw.append(round(deadline_hit_rate(recs), 3))
+            if len(recs) != 16:
+                fail(f"[streaming {mode}] {len(recs)} records of 16")
+        walls[mode] = time.monotonic() - t0
+        hits[mode] = (met, total, rounds, per_draw)
+    stream_launches = kernel.sgs_decode.launches
+    rate = {m: h[0] / max(h[1], 1) for m, h in hits.items()}
+    if not rate["sla"] > rate["fifo"]:
+        fail(f"[streaming] guaranteed hit rate SLA-aware {rate['sla']} is "
+             f"not above FIFO {rate['fifo']}")
+    if viols["sla"] or viols["fifo"]:
+        fail(f"[streaming] capacity violations {viols}")
+    if stream_launches < cfg.iters + 1:
+        fail(f"[streaming] sgs_decode launched {stream_launches} times")
+    # arrivals inside the live bucket and envelope run no new signature
+    wsess = agora.session(shared_capacity=True, bucket_p=16)
+    wsess.warmup(template)
+    n0 = wsess.stats.trace_count
+    rest = [d for d in sets[1] if d.name != template.name]
+    for n in (2, 3, 4):
+        for r in wsess.plan([template] + rest[:n - 1]):
+            if r.validate():
+                fail("[streaming] invalid plan inside the live bucket")
+    if wsess.stats.trace_count != n0:
+        fail(f"[streaming] {wsess.stats.trace_count - n0} new signatures "
+             f"inside the live bucket")
+    log(f"[streaming] 2 draws x 16 synth_trace tenants on "
+        f"alibaba_cluster(machines=20): guaranteed hit rate SLA-aware "
+        f"{rate['sla']:.3f} ({hits['sla'][0]}/{hits['sla'][1]}, per draw "
+        f"{hits['sla'][3]}, {hits['sla'][2]} rounds, {walls['sla']:.1f} s) "
+        f"vs FIFO {rate['fifo']:.3f} ({hits['fifo'][0]}/{hits['fifo'][1]}, "
+        f"per draw {hits['fifo'][3]}, {hits['fifo'][2]} rounds, "
+        f"{walls['fifo']:.1f} s); capacity "
+        f"violations 0; new signatures inside the live bucket 0; "
+        f"sgs_decode launches {stream_launches} ({gpu})")
+
+    # 5d. chaos: solver errors on the daemon's shared pool -------------------
+    def chaos(degraded_serve):
+        ring = RingSink()
+        csvc = PlannerService(agora, DaemonConfig(
+            pools=(PoolSpec("shared", shared_capacity=True, bucket_p=16),),
+            max_batch=1, max_wait_s=0.01,
+            chaos=ChaosConfig(solver_error_solves=(0, 1, 2, 3)),
+            breaker_threshold=2, breaker_cooldown_s=0.05, solve_retries=1,
+            degraded_serve=degraded_serve, sink=ring))
+        csvc.warmup(template, max_p=1)
+
+        async def go():
+            out = []
+            async with csvc:
+                for i in range(6):
+                    try:
+                        out.append(await csvc.submit(PlanRequest(
+                            dag=dc.replace(template, name=f"c{i}"))))
+                    except PlanServiceError as exc:
+                        out.append(exc)
+                    await asyncio.sleep(0.08)   # past the cooldown
+            return out
+
+        out = asyncio.run(go())
+        plans = [o for o in out if not isinstance(o, Exception)]
+        for r in plans:
+            if r.validate():
+                fail("[chaos] invalid plan")
+        opened = any(e.type == "pool_degraded" for e in ring.events)
+        return len(plans) / len(out), csvc.stats(), opened
+
+    avail, st, opened = chaos(True)
+    avail_off, _, _ = chaos(False)
+    if avail != 1.0 or not opened or st["degraded_served"] < 1:
+        fail(f"[chaos] degraded serving: availability {avail}, breaker "
+             f"opened {opened}, degraded {st['degraded_served']}")
+    if not avail_off < 1.0:
+        fail(f"[chaos] fail-fast availability {avail_off}, expected < 1")
+    log(f"[chaos] availability {avail:.3f} with degraded serving "
+        f"({st['degraded_served']} degraded, breaker opened and ended "
+        f"{st['pools']['shared']['breaker']}), {avail_off:.3f} fail-fast "
+        f"({gpu})")
+
+    # 5e. the CLI, as a user runs it ------------------------------------------
+    built.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=built) as tmp:
+        events = os.path.join(tmp, "events.jsonl")
+        env = dict(os.environ, PYTHONPATH=SRC, PYTHONUNBUFFERED="1")
+        t0 = time.monotonic()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve_planner",
+             "--port", "0", "--events", events], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        watchdog = threading.Timer(600.0, proc.kill)   # a hung CLI ends
+        watchdog.start()
+        try:
+            port, lines = None, []
+            while port is None:
+                line = proc.stdout.readline()
+                if not line:
+                    fail(f"[cli] exited before serving: {''.join(lines)}"
+                         f"{proc.stderr.read()[-2000:]}")
+                lines.append(line)
+                m = re.search(r"serving on http://[^:]+:(\d+)", line)
+                port = int(m.group(1)) if m else None
+            up_s = time.monotonic() - t0
+
+            def call(path, body=None):
+                status, data = asyncio.run(http_call(
+                    port, "GET" if body is None else "POST", path, body))
+                return status, json.loads(data)
+
+            health = call("/healthz")
+            # guaranteed, 10 s of slack past its 120 s critical path: the
+            # deadline flush sends it at once (the clock is the machine's
+            # monotonic clock, which the daemon reads too)
+            t0 = time.monotonic()
+            status, plan = call("/v1/plan", {
+                "dag": dag_to_json(demo_template()), "sla": "guaranteed",
+                "deadline": time.monotonic() + 130.0})
+            plan_s = time.monotonic() - t0
+            sstatus, stats = call("/v1/stats")
+            proc.send_signal(signal.SIGINT)
+            out, err = proc.communicate(timeout=120)
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if health != (200, {"ok": True, "running": True}):
+            fail(f"[cli] /healthz {health}")
+        if status != 200 or plan["errors"]:
+            fail(f"[cli] /v1/plan {status}: {plan}")
+        if sstatus != 200 or stats["served"] != 1:
+            fail(f"[cli] /v1/stats {sstatus}: served {stats.get('served')}")
+        if proc.returncode != 0 or "shutting down" not in out:
+            fail(f"[cli] exit {proc.returncode} after SIGINT: "
+                 f"{err[-2000:]}")
+        rep = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.obs_report", events],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        if rep.returncode != 0:
+            fail(f"[cli] obs_report exit {rep.returncode}: "
+                 f"{rep.stderr[-2000:]}")
+    log(f"[cli] serve_planner up in {up_s:.1f} s, /healthz ok, one "
+        f"guaranteed plan of the demo template in {plan_s:.3f} s (makespan "
+        f"{plan['makespan']:.1f} s), /v1/stats served 1, clean exit on "
+        f"SIGINT, obs_report exit 0 ({gpu})")
 
 
 def main(argv=None) -> int:
@@ -735,6 +1212,9 @@ def main(argv=None) -> int:
         f"{err}; launches on the paths {path_launches}")
     entry("usl_runtime[grid]", path_launches, err, ms, plain_ms, bound_ms,
           bound_by)
+
+    # 5. the control plane ---------------------------------------------------
+    control_plane(dev, gpu, cfg, icfg)
 
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

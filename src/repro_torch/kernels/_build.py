@@ -8,6 +8,11 @@ report (registers, shared memory, spills) lands beside each library as
 ``.log``. ``build()`` starts one ``nvcc`` per missing library, all at
 once, and waits for them. Nothing here runs when the module is imported.
 
+Threads may ask for a kernel at once (the serving daemon warms and serves
+each pool on threads of its own): one lock serialises ``build`` and
+``load``, so each library is compiled once and loaded once per process,
+and ``count_launch`` keeps the wrappers' launch counters exact.
+
 All kernels build with ``--fmad=false``: their contracts with their plain
 PyTorch versions are bit-for-bit (``sgs_decode``) or rest on the same
 rounding of every add and multiply, so nothing may be contracted.
@@ -15,14 +20,14 @@ rounding of every add and multiply, so nothing may be contracted.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -32,6 +37,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # wall seconds of the last compile of each kernel (0.0: the cached library)
 seconds: Dict[str, float] = {}
+# nvcc runs of each kernel in this process
+compiles: Dict[str, int] = {}
+
+_lock = threading.RLock()            # one build or load at a time
+_loaded: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -48,7 +59,13 @@ def _nvcc() -> str:
 def build(*names: str) -> Dict[str, Path]:
     """Compile the named kernels (``csrc/<name>.cu``), each once per hash
     of its source and the flags, and return ``{name: library}``. The
-    missing libraries compile in parallel, one ``nvcc`` each."""
+    missing libraries compile in parallel, one ``nvcc`` each; a second
+    caller waits for the first and finds its libraries built."""
+    with _lock:
+        return _build(names)
+
+
+def _build(names) -> Dict[str, Path]:
     out = {}
     for name in names:
         digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
@@ -64,6 +81,7 @@ def build(*names: str) -> Dict[str, Path]:
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        compiles[name] = compiles.get(name, 0) + 1
         running[name] = (proc, tmp, time.monotonic())
     failed = []
     for name, (proc, tmp, t0) in running.items():
@@ -75,21 +93,49 @@ def build(*names: str) -> Dict[str, Path]:
             continue
         lib = out[name]
         lib.with_suffix(".log").write_text(stdout + stderr)
-        os.replace(tmp, lib)      # atomic: a concurrent loader never sees half
+        os.replace(tmp, lib)      # atomic: another process never sees half
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built if needed, with its error-string entry
-    point typed; the caller types its launch function."""
-    lib = ctypes.CDLL(str(build(name)[name]))
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return lib
+def load(name: str, bind: Optional[Callable[[ctypes.CDLL], None]] = None
+         ) -> ctypes.CDLL:
+    """The kernel's library, built if needed and loaded once per process
+    however many threads ask at once, with its error-string entry point
+    typed; ``bind(lib)`` types the launch functions, once, before any
+    caller gets the library."""
+    lib = _loaded.get(name)      # the launch path: loaded, so no lock
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)[name]))
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            if bind is not None:
+                bind(lib)
+            _loaded[name] = lib
+        return lib
+
+
+def use_build_dir(path) -> None:
+    """Build into and load from ``path`` from now on. The libraries loaded
+    so far are forgotten, so each kernel's next use builds its library
+    there (or finds it built)."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = Path(path)
+        _loaded.clear()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, exactly, whichever threads launch
+    at once (a bare ``+= 1`` on an attribute can lose an increment)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check_tensor(kernel: str, name: str, x, dtypes, dim: int,

@@ -33,16 +33,17 @@ MAX_C = 16
 MAX_THREADS = 512   # a block's threads, as csrc/sched_violation.cu allows
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("sched_violation")
+def _bind(lib: ctypes.CDLL) -> None:
     lib.sched_violation_launch.argtypes = ([ctypes.c_void_p] * 5
                                            + [ctypes.c_int] * 4
                                            + [ctypes.c_longlong] * 7
                                            + [ctypes.c_int] * 4
                                            + [ctypes.c_void_p])
     lib.sched_violation_launch.restype = ctypes.c_int
-    return lib
+
+
+def _library() -> ctypes.CDLL:
+    return _build.load("sched_violation", _bind)
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,7 +118,7 @@ def sched_violation(start, dur, dem, caps, *, T: int, geom=None):
             *start.stride(), *dur.stride(), *dem.stride(), R, W, C, K,
             stream)
     _build.check_launch("sched_violation", lib, rc)
-    sched_violation.launches += 1
+    _build.count_launch(sched_violation)
     return out
 
 

@@ -15,7 +15,6 @@ Same contract as ``kernels/ref.sgs_decode_ref``, bit for bit.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -23,9 +22,7 @@ from repro_torch.device import FLOAT, INT
 from repro_torch.kernels import _build
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("sgs_decode")
+def _bind(lib: ctypes.CDLL) -> None:
     lib.sgs_decode_launch.argtypes = ([ctypes.c_void_p] * 9
                                       + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p])
@@ -35,7 +32,10 @@ def _library() -> ctypes.CDLL:
                                         + [ctypes.POINTER(ctypes.c_longlong)]
                                         * 2)
     lib.sgs_decode_geometry.restype = ctypes.c_int
-    return lib
+
+
+def _library() -> ctypes.CDLL:
+    return _build.load("sgs_decode", _bind)
 
 
 def geometry(rows: int, J: int, M: int, T: int, rows_per_group: int):
@@ -100,7 +100,7 @@ def sgs_decode(dur, dem, prio, release, pred, caps, *, T: int):
                          f"shared memory, more than the {limit} a block of "
                          f"this card has; nothing was launched")
     _build.check_launch("sgs_decode", lib, rc)
-    sgs_decode.launches += 1
+    _build.count_launch(sgs_decode)
     return start, finish, ok
 
 

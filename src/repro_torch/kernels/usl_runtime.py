@@ -10,7 +10,6 @@ Same contract as ``kernels/ref.usl_runtime_ref``, bit for bit.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -18,13 +17,14 @@ from repro_torch.device import FLOAT
 from repro_torch.kernels import _build
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("usl_runtime")
+def _bind(lib: ctypes.CDLL) -> None:
     lib.usl_runtime_launch.argtypes = ([ctypes.c_void_p] * 6
                                        + [ctypes.c_int64, ctypes.c_void_p])
     lib.usl_runtime_launch.restype = ctypes.c_int
-    return lib
+
+
+def _library() -> ctypes.CDLL:
+    return _build.load("usl_runtime", _bind)
 
 
 def usl_runtime(n, alpha, beta, gamma, work):
@@ -47,7 +47,7 @@ def usl_runtime(n, alpha, beta, gamma, work):
         rc = lib.usl_runtime_launch(*(x.data_ptr() for x in flat),
                                     out.data_ptr(), out.numel(), stream)
     _build.check_launch("usl_runtime", lib, rc)
-    usl_runtime.launches += 1
+    _build.count_launch(usl_runtime)
     return out.reshape(shape)
 
 

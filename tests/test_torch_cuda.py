@@ -234,3 +234,67 @@ def test_ising_same_plan_either_route_off_grid(card, grid):
     cfg = ising.IsingConfig(chains=32, iters=100, seed=0, grid=grid)
     assert sv_kernel.geometry(cfg.chains, 2, grid, 132)[3] == 0
     _ising_same_plan_either_route(card, cfg)
+
+
+def test_launch_counter_exact_with_8_threads_on_the_card(card):
+    """Eight threads launching the decode kernel at once: every launch is
+    counted, and each thread's results equal the plain version."""
+    import threading
+    args, T = kernel_cases()[0]
+    dev = [torch.from_numpy(a).to(card) for a in args]
+    want = ops.sgs_decode(*dev, T=T, use_kernel=False)
+    n = kernel.sgs_decode.launches
+    errors = []
+
+    def launch():
+        try:
+            for _ in range(50):
+                got = ops.sgs_decode(*dev, T=T)
+                torch.cuda.current_stream().synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(want, got))
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert errors == []
+    assert kernel.sgs_decode.launches == n + 8 * 50
+
+
+def test_two_pools_warm_concurrently_on_the_card(card, tmp_path,
+                                                 monkeypatch):
+    """The serving daemon's first use of the decode kernel from two threads
+    at once: the shared and the isolated pool warm on threads of their own
+    while the library is not built yet (an empty build directory). It is
+    compiled once, both warmups finish, and the counter holds every
+    solve's launches."""
+    from repro_torch.core.agora import Agora
+    from repro_torch.flow.daemon import DaemonConfig, PlannerService, PoolSpec
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "compiles", {})
+    _build.use_build_dir(tmp_path)
+    cluster = alibaba_cluster(machines=20)
+    template = max(synth_trace(4, cluster, seed=3), key=lambda d: d.num_tasks)
+    cfg = vec.VecConfig(chains=8, iters=40, grid=128, seed=0)
+    svc = PlannerService(
+        Agora(cluster, goal=Goal.balanced(), solver="vectorized",
+              vec_cfg=cfg, device=card),
+        DaemonConfig(pools=(PoolSpec("shared", shared_capacity=True,
+                                     bucket_p=4),
+                            PoolSpec("isolated", shared_capacity=False,
+                                     bucket_p=4)), max_batch=4))
+    n = kernel.sgs_decode.launches
+    futures = [e.session.warmup_async(template, max_p=4)
+               for e in svc.entries.values()]
+    warm = [f.result(timeout=600) for f in futures]
+    assert all(set(w) == {4} for w in warm)
+    assert _build.compiles == {"sgs_decode": 1}
+    assert kernel.sgs_decode.launches - n >= 2 * (cfg.iters + 1)
+    for entry in svc.entries.values():
+        entry.executor.shutdown()
+    svc._widen_pool.shutdown()

@@ -26,7 +26,8 @@ def test_package_has_the_slice_modules():
                  "kernels.sgs_decode", "kernels.sched_violation",
                  "kernels.usl_runtime", "core.vectorized", "core.ising",
                  "core.session", "core.agora", "cluster.workloads",
-                 "obs.sink"):
+                 "obs.sink", "flow.chaos", "flow.executor", "flow.streaming",
+                 "flow.daemon", "launch.serve_planner", "launch.obs_report"):
         assert "repro_torch." + name in mods
 
 
