@@ -16,8 +16,9 @@ Phases, each failing loudly (no phase's failure is caught):
    (``tests/_decode_cases.py``: the random sweep, the edge cases, grouped
    G > 1 calls, J = 300, and the main path's isolated and shared shapes
    with an odd group size at J > 32); ``sched_violation`` bit for bit on
-   the shapes of ``tests/test_kernels.py``, the ising engine's shapes and
-   the largest grids of its envelope, in float32 and bfloat16, with
+   the shapes of ``tests/test_kernels.py``, the ising engine's shapes, the
+   largest grids of its register envelope and the wide path's grids past
+   it (M 4 x T 2048, M 1 x T 4097, M 9, M 12), in float32 and bfloat16, with
    ``dem`` contiguous and as the ising loop passes it, a transposed view
    (zero at caps 1e9, never negative); ``usl_runtime`` on
    ``tests/test_kernels.py``'s shapes in float32 and bfloat16 (rtol 1e-5,
@@ -57,19 +58,40 @@ Phases, each failing loudly (no phase's failure is caught):
    serving (the breaker opens), below 1.0 fail-fast; (e) ``python -m
    repro_torch.launch.serve_planner`` in a subprocess with its default
    flags serves ``/healthz``, a plan and ``/v1/stats``, exits cleanly on
-   SIGINT, and ``obs_report`` reads its event tape.
+   SIGINT, and ``obs_report`` reads its event tape;
+6. this slice's paths (run before phase 5): (a) ``ising_anneal`` at
+   ``IsingConfig(grid=2048)`` on ``paper_cluster()`` (M 4, 8192 cells)
+   serves ``dag1`` through ``sched_violation``'s wide path, iters + 1
+   launches; (b) the B=1 wrappers ``decode_schedule_full`` and
+   ``decode_schedule`` through the decode kernel against the plain
+   version; (c) the isolated and shared solves of phase 3's shapes
+   unsharded and on (1, 1), (2, 1) and (1, 2) planner meshes over the one
+   card: valid plans, ``sgs_decode`` launches per sharded solve, the
+   (1, 1) mesh's plans equal to the unsharded ones; (d) the decode's
+   shape ceiling: ``sgs_decode_geometry`` (warps, shared memory, the
+   card's limit, rc) for shared pools of 8 to 128 tenants at Jmax 14, the
+   first J the card refuses at M 2, T 256, and a launch at the largest J
+   it takes against the plain version;
+7. plan quality against the reference (``tests/_quality.py``): the four
+   cells of phases 3 and 4 on the card's production draws for the solver
+   seeds of ``tests/torch_golden/quality_full.json`` (the reference's
+   energies from CPU JAX): every plan valid, and each cell's mean energy
+   over the seeds at most the reference's mean plus two standard errors
+   of its seed spread.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
 loop passes them (a transposed ``dem`` view, read through its strides)
 and, on an earlier line, contiguous and in the kernel's general layout
 (K = 0) beside the bin-major one ``geometry`` picks; beside them the
-device time of an empty launch and of a launch with no tasks.
+device time of an empty launch and of a launch with no tasks. The wide
+path is timed at B 512, J 10, M 4, T 2048, beside the bin-major path on
+the same tasks scaled to T 256, and on phase 6a's live inputs.
 ``usl_runtime``, which no path calls, is timed on a grid of 4096 tasks x
 256 configurations of contiguous float32 inputs, so that the call runs
 no copy kernel; each timed call's PyTorch ops are recorded and the run
 fails if one of them copies. The build fails if ptxas reports a spill in
-``sched_violation``'s kernels.
+any of ``sched_violation``'s kernels, the wide path's among them.
 
 Prints the card's name and power limit, the control plane's numbers
 (warmup, dispatch and submit-to-result seconds, hit rates, availability)
@@ -786,6 +808,242 @@ def control_plane(dev, gpu, cfg, icfg) -> None:
         f"SIGINT, obs_report exit 0 ({gpu})")
 
 
+# --- phases 6 and 7: the grids past the register envelope, the B=1 wrappers,
+# the meshes, the decode's shape ceiling and plan quality -----------------
+
+def wide_grid(dev, gpu, icfg):
+    """Phase 6a: ``sched_violation`` past its register envelope. The ising
+    engine at ``IsingConfig(grid=2048)`` on ``paper_cluster()`` (M 4, 8192
+    cells: the wide path's two passes) serves ``dag1`` through the kernel,
+    iters + 1 launches; returns (launches, the captured call's inputs)."""
+    import torch
+
+    from repro_torch.cluster.catalog import paper_cluster
+    from repro_torch.cluster.workloads import dag1
+    from repro_torch.core import ising
+    from repro_torch.core.annealer import reference_point
+    from repro_torch.core.dag import flatten
+    from repro_torch.core.objectives import Goal
+    from repro_torch.core.sgs import validate_schedule
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sched_violation as sv_kernel
+
+    pc = paper_cluster()
+    prob = flatten([dag1(pc)], pc.num_resources)
+    cfg = dataclasses.replace(icfg, grid=2048)
+    ref = reference_point(prob, pc)
+    torch.cuda.synchronize()
+    sv_kernel.sched_violation.launches = 0
+    t0 = time.monotonic()
+    with Capture(ops, "sched_violation", at=cfg.iters // 2) as cap:
+        sol = ising.ising_anneal(prob, pc, Goal.balanced(), cfg, ref,
+                                 device=dev)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    launches = sv_kernel.sched_violation.launches
+    errs = validate_schedule(prob, sol.option_idx, sol.start, sol.finish,
+                             pc.caps)
+    if errs or launches != cfg.iters + 1:
+        fail(f"[ising grid 2048] {len(errs)} violations, sched_violation "
+             f"launched {launches} times (expected {cfg.iters + 1})")
+    B, M, J = cap.args[2].shape
+    N = sv_kernel.geometry(B, M, cap.T, sv_kernel._sms(dev.index or 0))[4]
+    log(f"[ising grid 2048] dag1 on paper_cluster (B {B}, J {J}, M {M}, T "
+        f"{cap.T}: {N} cells, {N // 4096} passes of the wide path): makespan {sol.makespan:.1f} s cost ${sol.cost:.2f} energy "
+        f"{sol.energy:.4f} in {secs:.3f} s; sched_violation launches "
+        f"{launches} ({gpu})")
+    return launches, cap.args
+
+
+def b1_wrappers(dev, kernel):
+    """Phase 6b: ``decode_schedule_full`` and ``decode_schedule`` (B=1)
+    through the decode kernel, each against the plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster.catalog import paper_cluster
+    from repro_torch.cluster.workloads import dag1, dag2, motivation_dag
+    from repro_torch.core import vectorized as vec
+    from repro_torch.core.annealer import reference_point
+    from repro_torch.core.dag import flatten
+
+    pc = paper_cluster()
+    rng = np.random.default_rng(0)
+    cfg = vec.VecConfig()
+    n0, checked = kernel.sgs_decode.launches, 0
+    for dag in (dag1(pc), dag2(pc), motivation_dag(pc)):
+        prob = flatten([dag], pc.num_resources)
+        dp = vec.DeviceProblem.build(prob, pc, reference_point(prob, pc)[0],
+                                     cfg, dev)
+        n_opts = dp.n_opts.cpu().numpy()
+        opt = torch.tensor(rng.integers(0, 1 << 20, len(n_opts)) % n_opts,
+                           dtype=torch.int32, device=dev)
+        prio = torch.tensor(rng.normal(size=len(n_opts)),
+                            dtype=torch.float32, device=dev)
+        same_outputs(vec.decode_schedule_full(dp, opt, prio),
+                     vec.decode_schedule_full(dp, opt, prio,
+                                              use_kernel=False))
+        got = vec.decode_schedule(dp, opt, prio)
+        want = vec.decode_schedule(dp, opt, prio, use_kernel=False)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail("[b1] decode_schedule: kernel and plain routes disagree")
+        checked += 1
+    torch.cuda.synchronize()
+    launches = kernel.sgs_decode.launches - n0
+    if launches != 2 * checked:
+        fail(f"[b1] sgs_decode launched {launches} times for {checked} "
+             f"problems x 2 wrappers")
+    log(f"[b1] decode_schedule_full and decode_schedule on dag1, dag2 and "
+        f"the motivation DAG: kernel == plain (start, finish, ok, makespan, "
+        f"cost, infeasible count); sgs_decode launches {launches}")
+
+
+def meshes(dev, gpu, cfg, kernel):
+    """Phase 6c: the mesh-sharded solves on (1, 1), (2, 1) and (1, 2)
+    planner meshes over one card, at the isolated and shared shapes of
+    phase 3 (16 DAGs, ``VecConfig()``); valid plans, ``sgs_decode``
+    launches per sharded solve, and the (1, 1) mesh gives the unsharded
+    plans."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster.catalog import alibaba_cluster
+    from repro_torch.cluster.workloads import synth_trace
+    from repro_torch.core import vectorized as vec
+    from repro_torch.core.annealer import reference_point
+    from repro_torch.core.dag import flatten
+    from repro_torch.core.objectives import Goal
+    from repro_torch.core.sgs import validate_schedule
+    from repro_torch.launch.mesh import make_planner_mesh
+
+    for name, shared, machines, seed in (("isolated", False, 4034, 1),
+                                         ("shared", True, 20, 3)):
+        cluster = alibaba_cluster(machines=machines)
+        dags = synth_trace(16, cluster, seed=seed)
+        if shared:
+            for d in dags:
+                d.release_time = 0.0
+        probs = [flatten([d], cluster.num_resources) for d in dags]
+        refs = [reference_point(p, cluster) for p in probs]
+        solve = (vec.vectorized_anneal_shared if shared
+                 else vec.vectorized_anneal_many)
+        plans = {}
+        for shape in (None, (1, 1), (2, 1), (1, 2)):
+            mesh = None if shape is None else make_planner_mesh(
+                chains=shape[1], devices=[dev] * (shape[0] * shape[1]))
+            torch.cuda.synchronize()
+            kernel.sgs_decode.launches = 0
+            t0 = time.monotonic()
+            out = solve(probs, cluster, Goal.balanced(), cfg, refs,
+                        bucket_p=16, mesh=mesh, device=dev)
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            launches = kernel.sgs_decode.launches
+            sols, joint = out if shared else (out, [])
+            for p, sol in zip(probs, sols):
+                if validate_schedule(p, sol.option_idx, sol.start,
+                                     sol.finish, cluster.caps):
+                    fail(f"[mesh {name} {shape}] invalid plan")
+            if joint:
+                fail(f"[mesh {name} {shape}] joint violations {joint[:3]}")
+            # a shard launches one decode a sweep and one at the start;
+            # the shared engine's problem axis is replicated (one row)
+            shards = 1 if shape is None else (
+                shape[1] if shared else shape[0] * shape[1])
+            want = shards * (cfg.iters + 1) + (1 if shared else 0)
+            if launches != want:
+                fail(f"[mesh {name} {shape}] sgs_decode launched {launches} "
+                     f"times, expected {want}")
+            plans[shape] = [s.option_idx for s in sols]
+            same = shape is None or all(
+                np.array_equal(a, b) for a, b in zip(plans[None], plans[shape]))
+            if shape == (1, 1) and not same:
+                fail(f"[mesh {name}] the (1, 1) mesh differs from the "
+                     f"unsharded solve")
+            log(f"[mesh {name}] {'unsharded' if shape is None else shape}: "
+                f"{len(sols)} valid plans in {secs:.3f} s, mean energy "
+                f"{float(np.mean([s.energy for s in sols])):.5f}; "
+                f"sgs_decode launches {launches}; plans equal to the "
+                f"unsharded solve: {same} ({gpu})")
+
+
+def decode_ceiling(dev, gpu, kernel, ops):
+    """Phase 6d: ``sgs_decode``'s shape ceiling, measured: the launch
+    geometry (``csrc/sgs_decode.cu:sgs_decode_geometry``) of the shared
+    decode at M 2, T 256, 256 chain rows, for buckets of 8 to 128 tenants
+    at Jmax 14; the first J the card refuses; and one launch at the
+    largest J it takes, against the plain version."""
+    import numpy as np
+    import torch
+    from _decode_cases import grouped_instance
+
+    M, T, rows, jmax = 2, 256, 256, 14
+    for bucket in (8, 16, 32, 64, 128):
+        J = bucket * jmax
+        warps, smem, limit, fits = kernel.geometry(rows, J, M, T, rows)
+        log(f"[sgs_decode_geometry] bucket {bucket} x Jmax {jmax} = J {J}, "
+            f"M {M}, T {T}, {rows} rows: warps {warps}, smem {smem} B, "
+            f"limit {limit} B, rc {0 if fits else -1} ({gpu})")
+    lo, hi = 1, 2049            # takes lo; refuses hi (64 words of slots)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if kernel.geometry(rows, mid, M, T, rows)[3]:
+            lo = mid
+        else:
+            hi = mid
+    # eight rows: the plain version gathers a (rows, J, J) precedence a step
+    args = [torch.from_numpy(a).to(dev) for a in
+            grouped_instance(np.random.default_rng(3), 1, 8, lo, M, T)[1]]
+    t0 = time.monotonic()
+    same_outputs(ops.sgs_decode(*args, T=T, use_kernel=True),
+                 ops.sgs_decode(*args, T=T, use_kernel=False))
+    torch.cuda.synchronize()
+    log(f"[sgs_decode_geometry] the ceiling at M {M}, T {T}: J {lo} fits "
+        f"({kernel.geometry(rows, lo, M, T, rows)[1]} B), J {hi} is the "
+        f"first refused; one launch of 8 rows at J {lo} equals the plain version "
+        f"({time.monotonic() - t0:.1f} s with it) ({gpu})")
+    return hi
+
+
+def quality(dev, gpu):
+    """Phase 7: plan quality against the reference (``tests/_quality.py``).
+    Each of the four cells of phases 3 and 4 at ``VecConfig()`` /
+    ``IsingConfig()`` is solved on the card's production draws for the
+    solver seeds of ``tests/torch_golden/quality_full.json`` (the
+    reference's energies, written on CPU JAX by
+    ``tests/_quality_reference.py``); every plan must be valid and the
+    cell must hold the rule. A cell that misses it fails the run."""
+    import importlib
+
+    import _quality as q
+
+    with open(os.path.join(ROOT, "tests", "torch_golden",
+                           "quality_full.json")) as f:
+        golden = json.load(f)["cells"]
+    api = q.modules({m: importlib.import_module(f"repro_torch.{m}")
+                     for m in q.MODULES}, device=dev)
+    missed = []
+    for cell in sorted(q.CELLS):
+        ref = {int(s): m for s, m in golden[cell]["seeds"].items()}
+        t0 = time.monotonic()
+        means, errors = q.sweep(api, cell, "full", seeds=sorted(ref))
+        if errors:
+            fail(f"[quality {cell}] invalid plans: {errors[:3]}")
+        holds, mean, bound = q.check({s: m for s, (m, _) in means.items()},
+                                     ref)
+        log(f"[quality {cell}] seeds {sorted(ref)}, "
+            f"{golden[cell]['plans_per_seed']} plans a seed, all valid: the "
+            f"port's mean energy {mean!r} against the reference's mean "
+            f"{float(sum(ref.values()) / len(ref))!r}, bound {bound!r}: "
+            f"{'holds' if holds else 'MISSED'}; port per seed "
+            f"{ {s: round(m, 5) for s, (m, _) in means.items()} } in "
+            f"{time.monotonic() - t0:.1f} s ({gpu})")
+        if not holds:
+            missed.append(cell)
+    if missed:
+        fail(f"[quality] the rule is missed in {missed}")
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -807,8 +1065,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import numpy as np
     from _decode_cases import (SCHED_ENVELOPE_SHAPES, SCHED_MAIN_SHAPES,
-                               SCHED_SHAPES, USL_SHAPES, kernel_cases,
-                               sched_instance, usl_instance)
+                               SCHED_SHAPES, SCHED_WIDE_SHAPES, USL_SHAPES,
+                               kernel_cases, sched_instance, usl_instance)
 
     from repro_torch.cluster.catalog import alibaba_cluster, paper_cluster
     from repro_torch.cluster.workloads import dag1, synth_trace
@@ -845,23 +1103,32 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {entry[:60]}: {regs} registers, spill "
                     f"stores {st} B, loads {ld} B")
             continue
-        # one kernel per (C cells a lane, K bins a row, MM resources)
+        # one kernel per (C cells a lane, K bins a row, MM resources), and
+        # the wide path's kernel (256 threads a block)
         if not entries:
             fail("no ptxas report for sched_violation")
-        shown = []
+        shown, most, wide = [], 0, []
         for entry, regs, st, ld in entries:
             m = re.search(r"kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
-            shown.append(f"<{','.join(m.groups()) if m else entry}> {regs}")
             if st or ld:
                 fail(f"ptxas spills in sched_violation {entry}: stores {st} "
                      f"B, loads {ld} B")
-        most = max(regs for _, regs, _, _ in entries)
-        log(f"[build] sched_violation: {len(entries)} kernels <C,K,MM> "
-            f"registers: {', '.join(shown)}; no spills; at most {most} "
-            f"registers x {sv_kernel.MAX_THREADS} threads a block")
-        if most * sv_kernel.MAX_THREADS > 65536:
+            if "wide" in entry:
+                wide.append(regs)
+                continue
+            shown.append(f"<{','.join(m.groups()) if m else entry}> {regs}")
+            most = max(most, regs)
+        if len(wide) != 2:
+            fail("no ptxas report for sched_violation's two wide kernels")
+        log(f"[build] sched_violation: {len(shown)} kernels <C,K,MM> "
+            f"registers: {', '.join(shown)}; the wide path's kernels "
+            f"{wide} registers; no spills; at most {most} registers x "
+            f"{sv_kernel.MAX_THREADS} threads a block, {max(wide)} x 256 "
+            f"on the wide path")
+        if most * sv_kernel.MAX_THREADS > 65536 or max(wide) * 256 > 65536:
             fail(f"sched_violation: {most} registers a thread do not fit "
-                 f"{sv_kernel.MAX_THREADS} threads in one SM's 64 K")
+                 f"{sv_kernel.MAX_THREADS} threads in one SM's 64 K, or "
+                 f"{wide} do not fit 256")
 
     # 2. kernels against their plain versions, on the card -------------------
     def on_card(args):
@@ -875,7 +1142,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"[parity] {len(cases)} decode instances: kernel == plain version")
 
-    sched_shapes = SCHED_SHAPES + SCHED_MAIN_SHAPES + SCHED_ENVELOPE_SHAPES
+    sched_shapes = (SCHED_SHAPES + SCHED_MAIN_SHAPES + SCHED_ENVELOPE_SHAPES
+                    + SCHED_WIDE_SHAPES)
     sched_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for B, J, M, T in sched_shapes:
@@ -1079,6 +1347,13 @@ def main(argv=None) -> int:
     quickstart("ising-quickstart", "ising", sv_kernel.sched_violation,
                icfg.iters + 1)
 
+    # 6. the grids past the envelope, the B=1 wrappers, the meshes, the
+    # decode's shape ceiling ------------------------------------------------
+    wide_launches, wide_args = wide_grid(dev, gpu, icfg)
+    b1_wrappers(dev, kernel)
+    meshes(dev, gpu, cfg, kernel)
+    decode_ceiling(dev, gpu, kernel, ops)
+
     # kernel numbers at the paths' shapes ------------------------------------
     entries = []
 
@@ -1176,6 +1451,37 @@ def main(argv=None) -> int:
         entry(f"sched_violation[{name}]", results[f"ising-{name}"]["launches"],
               err, ms, plain_ms, bound_ms, bound_by)
 
+    # the wide path (phase 6a's grids): B 512, J 10, M 4, T 2048, beside
+    # the bin-major path on the same tasks at T 256
+    T = 2048
+    args = on_card(sched_instance(512, 10, 4, T))
+    got = ops.sched_violation(*args, T=T, use_kernel=True)
+    want = ops.sched_violation(*args, T=T, use_kernel=False)
+    err = close_outputs("sched_violation[wide]", got, want, rtol=2e-5,
+                        atol=2e-4)
+    if not torch.equal(got, want):
+        fail("sched_violation[wide]: kernel differs from its plain version")
+    ms = kernel_ms(lambda: sv_kernel.sched_violation(*args, T=T), 200)
+    call_ms = time_ms(lambda: sv_kernel.sched_violation(*args, T=T), 200)
+    plain_ms = time_ms(lambda: ops.sched_violation(*args, T=T,
+                                                   use_kernel=False), reps=5)
+    bound_ms, bound_by, nbytes, nops = sched_bound(args, T)
+    narrow = [args[0] / 8, args[1] / 8, args[2], args[3]]
+    narrow_ms = kernel_ms(lambda: sv_kernel.sched_violation(*narrow, T=256),
+                          200)
+    live_ms = kernel_ms(lambda: sv_kernel.sched_violation(*wide_args,
+                                                          T=2048), 200)
+    log(f"[sched_violation wide] B 512 J 10 M 4 T {T} (8192 cells, two "
+        f"passes of 4096): kernel {ms:.5f} ms/launch on the device "
+        f"({call_ms:.4f} ms per call as launched), plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.6f} ms ({bound_by}; {nbytes} B, {nops} ops); the "
+        f"same tasks scaled to T 256 on the bin-major path {narrow_ms:.5f} "
+        f"ms/launch; phase 6a's live inputs (J "
+        f"{wide_args[2].shape[2]}, dem as the ising loop passes it) "
+        f"{live_ms:.5f} ms/launch; max abs err {err} ({gpu})")
+    entry("sched_violation[wide]", wide_launches, err, ms, plain_ms, bound_ms,
+          bound_by)
+
     # usl_runtime: no path calls it; a grid of 4096 tasks x 256 configurations
     path_launches = usl_kernel.usl_runtime.launches
     rng = np.random.default_rng(0)
@@ -1215,6 +1521,9 @@ def main(argv=None) -> int:
 
     # 5. the control plane ---------------------------------------------------
     control_plane(dev, gpu, cfg, icfg)
+
+    # 7. plan quality against the reference ----------------------------------
+    quality(dev, gpu)
 
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ from repro_torch.core.dag import DAG, FlatProblem, concat_problems, flatten
 from repro_torch.core.objectives import Goal, Solution
 from repro_torch.core.sgs import (schedule_cost, validate_schedule,
                                   validate_schedule_many)
-from repro_torch.core.vectorized import (NOT_PORTED, SolveBatch, VecConfig,
+from repro_torch.core.vectorized import (SolveBatch, VecConfig,
                                          register_engine)
 from repro_torch.device import resolve_device
 
@@ -189,8 +189,6 @@ class Agora:
                  vec_cfg: Optional[VecConfig] = None,
                  mesh=None, device=None):
         assert solver in ("anneal", "vectorized", "ising")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh-sharded solving {NOT_PORTED}")
         self.device = resolve_device(device)
         self.cluster = cluster
         self.goal = goal

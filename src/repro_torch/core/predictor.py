@@ -1,14 +1,18 @@
-"""Runtime predictors (paper §2.1 / §4.4), the numpy parts.
+"""Runtime predictors (paper §2.1 / §4.4), PyTorch port of the JAX
+package's ``core/predictor.py``.
 
+* ``ErnestPredictor`` — Ernest's feature model  t(n) = θ0 + θ1·(1/n) +
+  θ2·log(n) + θ3·n  fit with non-negative least squares, by projected
+  gradient descent in torch on the device the caller names (``"cuda"``
+  unless the caller asks for the CPU).
 * ``USLCurve`` — the universal scalability law (paper Eq. 9) used for the
   Alibaba macro benchmark: X(N) = γN / (1 + α(N−1) + βN(N−1)).
 * ``profile_options`` — the in-house Predictor: takes one prior run ("event
   log") per task and emits the TaskOption grid over (instance type × count),
   i.e. the configuration axis the annealer explores.
 * ``ernest_select`` — the separate-optimization baseline's per-task pick.
-
-The Ernest NNLS fit (``ErnestPredictor``) and the dry-run roofline
-predictor (``RooflinePredictor``) are not ported yet (ROADMAP.md, Queue 1).
+* ``RooflinePredictor`` — runtime(chip count) from a compiled dry-run's
+  three roofline terms, with the H100's constants in place of the TPU's.
 """
 from __future__ import annotations
 
@@ -16,9 +20,55 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.cluster.catalog import Cluster
 from repro_torch.core.dag import TaskOption
+from repro_torch.device import FLOAT, resolve_device
+
+
+# ---------------------------------------------------------------------------
+# Ernest (NNLS via projected gradient)
+# ---------------------------------------------------------------------------
+
+
+def _ernest_features(n: torch.Tensor) -> torch.Tensor:
+    n = n.to(FLOAT)
+    return torch.stack([torch.ones_like(n), 1.0 / n, torch.log(n), n], dim=-1)
+
+
+def _nnls_pg(X: torch.Tensor, y: torch.Tensor, iters: int = 2000
+             ) -> torch.Tensor:
+    """min ||XΘ - y||^2 s.t. Θ >= 0, by projected gradient with 1/L step,
+    L the spectral norm of XᵀX (an SVD, as ``jnp.linalg.norm(ord=2)``)."""
+    XtX = X.T @ X
+    Xty = X.T @ y
+    L = torch.linalg.matrix_norm(XtX, ord=2) + 1e-6
+    theta = torch.clamp(Xty / (torch.diagonal(XtX) + 1e-6), min=0.0)
+    for _ in range(iters):
+        grad = XtX @ theta - Xty
+        theta = torch.clamp(theta - grad / L, min=0.0)
+    return theta
+
+
+@dataclasses.dataclass
+class ErnestPredictor:
+    theta: np.ndarray  # (4,) float32
+
+    @classmethod
+    def fit(cls, node_counts: Sequence[float], runtimes: Sequence[float], *,
+            device=None) -> "ErnestPredictor":
+        """Fit θ on ``device`` (``"cuda"`` unless the caller names another);
+        θ comes back to the host."""
+        device = resolve_device(device)
+        X = _ernest_features(torch.tensor(np.asarray(node_counts, np.float32),
+                                          device=device))
+        y = torch.tensor(np.asarray(runtimes, np.float32), device=device)
+        return cls(theta=_nnls_pg(X, y).cpu().numpy())
+
+    def predict(self, n) -> np.ndarray:
+        X = _ernest_features(torch.tensor(np.asarray(n, np.float32)))
+        return X.numpy() @ self.theta
 
 
 # ---------------------------------------------------------------------------
@@ -100,3 +150,62 @@ def ernest_select(options: Sequence[TaskOption], goal: str) -> int:
     else:
         key = 0.5 * d / d.min() + 0.5 * c / max(c.min(), 1e-12)
     return int(np.argmin(key))
+
+
+# ---------------------------------------------------------------------------
+# Roofline predictor, with the H100's constants
+# ---------------------------------------------------------------------------
+
+# One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): the dense
+# bf16 tensor-core peak, as chip_smoke.py quotes the card's peaks; HBM3; and
+# NVLink at 450 GB/s each way in place of the TPU's ICI.
+PEAK_FLOPS = 989e12
+HBM_BW = 3.35e12
+NVLINK_BW = 450e9
+
+
+@dataclasses.dataclass(frozen=True)
+class RooflineRecord:
+    flops: float
+    bytes_hbm: float
+    bytes_collective: float
+    chips: int
+
+    def runtime(self, chips: Optional[int] = None) -> float:
+        """max of the three terms; rescaling chip count keeps collective bytes
+        per chip constant (conservative weak-scaling assumption)."""
+        c = chips or self.chips
+        t_compute = self.flops / (c * PEAK_FLOPS)
+        t_mem = self.bytes_hbm / (c * HBM_BW)
+        t_coll = (self.bytes_collective / self.chips) / NVLINK_BW
+        return max(t_compute, t_mem, t_coll)
+
+
+class RooflinePredictor:
+    """Predict training-step runtime per (arch, mesh) from dry-run records,
+    the accelerator's counterpart of a task's event log."""
+
+    def __init__(self):
+        self._records: Dict[str, RooflineRecord] = {}
+
+    def add(self, key: str, rec: RooflineRecord):
+        self._records[key] = rec
+
+    def predict(self, key: str, chips: Optional[int] = None) -> float:
+        return self._records[key].runtime(chips)
+
+    def options_for(self, key: str, steps: int, cluster: Cluster,
+                    chip_counts: Sequence[int] = (4, 8, 16, 64, 256)) -> List[TaskOption]:
+        rec = self._records[key]
+        opts = []
+        M = cluster.num_resources
+        for m, itype in enumerate(cluster.types):
+            chips = itype.vcpus
+            if chips not in chip_counts:
+                continue
+            d = rec.runtime(chips) * steps
+            demands = [0.0] * M
+            demands[m] = 1.0
+            opts.append(TaskOption(f"1 x {itype.name}", d, tuple(demands),
+                                   d * itype.price_per_sec))
+        return opts

@@ -46,7 +46,7 @@ import numpy as np
 
 from repro_torch.core.dag import DAG, FlatProblem, bucket_size, flatten
 from repro_torch.core.objectives import Goal, Solution
-from repro_torch.core.vectorized import (NOT_PORTED, SolveBatch, SolveSpec,
+from repro_torch.core.vectorized import (SolveBatch, SolveSpec,
                                          VecConfig, resolve_engine)
 from repro_torch.device import resolve_device
 from repro_torch.obs import events as obs
@@ -358,8 +358,6 @@ class PlannerSession:
         self.vec_cfg = vec_cfg or agora.vec_cfg
         self.anneal_cfg = agora.anneal_cfg
         self.mesh = agora.mesh if mesh is _UNSET else mesh
-        if self.mesh is not None:
-            raise NotImplementedError(f"mesh-sharded solving {NOT_PORTED}")
         # the Agora's device unless the caller names another one
         self.device = (agora.device if device is None
                        else resolve_device(device))

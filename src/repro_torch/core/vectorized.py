@@ -14,12 +14,17 @@ package's ``core/vectorized.py``).
 There is no ``jit``: the sweep loop is a Python loop of tensor ops that
 never syncs with the host, and compile-once becomes signature accounting
 — each engine's ``cache_size()`` counts the distinct (P_pad, Jmax, Omax,
-M, cfg, device) signatures it has run, so ``PlannerSession.stats`` keeps
+M, cfg, devices) signatures it has run, so ``PlannerSession.stats`` keeps
 its meaning and warm traffic adds nothing.
 
 Every random number of a solve comes from one ``DrawTape`` computed before
 the sweep loop, keyed per problem (see ``draw_tape``). The tests replay
 the reference's ``jax.random`` draws through the same seam.
+
+A (prob, chain) device mesh (``launch/mesh.py``) shards a solve: one
+process drives every shard, stepping them sweep by sweep, and the replica
+exchange gathers each chain shard's incumbents (``_exchange``), exactly as
+the reference's ``shard_map`` collectives do.
 
 The final incumbent is re-evaluated event-exactly on the host (sgs.py), so
 grid quantization never corrupts reported numbers.
@@ -45,9 +50,6 @@ from repro_torch.device import FLOAT, INDEX, INT, resolve_device
 from repro_torch.kernels import ops as kops
 
 _SQRT_HALF = float(np.float32(math.sqrt(0.5)))
-
-NOT_PORTED = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
-
 
 @dataclasses.dataclass(frozen=True)
 class VecConfig:
@@ -163,15 +165,38 @@ _SIGNATURES: Dict[str, set] = {"isolated": set(), "shared": set()}
 
 
 def _note_signature(engine: str, packed: PackedProblems, cfg: VecConfig,
-                    device: torch.device) -> None:
+                    grid: np.ndarray) -> None:
+    """``grid`` is the solve's device grid (see ``_device_grid``): the mesh
+    rides in the signature, as in the reference's static JIT arguments."""
     _SIGNATURES[engine].add((packed.padded_problems, packed.max_tasks,
                              packed.durations.shape[2], packed.num_resources,
-                             cfg, str(device)))
+                             cfg, grid.shape,
+                             tuple(str(d) for d in grid.flat)))
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"mesh-sharded solving {NOT_PORTED}")
+def _device_grid(mesh, device) -> np.ndarray:
+    """The (prob, chain) grid of devices a solve runs on: the mesh's, a 1-D
+    chains mesh as one row, or ``[[device]]`` without a mesh. The same
+    device may fill several entries (one card, or the CPU, can run a
+    (2, 1) or (1, 2) mesh); that changes no result."""
+    if mesh is None:
+        return np.array([[resolve_device(device)]], dtype=object)
+    grid = np.asarray(mesh.devices, dtype=object)
+    if len(mesh.axis_names) == 1:
+        grid = grid.reshape(1, -1)
+    if grid.ndim != 2:
+        raise ValueError(f"a mesh of axes {mesh.axis_names} is neither a "
+                         f"(prob, chain) planner mesh nor a chains mesh")
+    return grid
+
+
+def _split(n: int, parts: int, what: str):
+    """``parts`` equal slices of range(n)."""
+    if n % parts:
+        raise ValueError(f"{n} {what} do not split over {parts} mesh "
+                         f"entries")
+    k = n // parts
+    return [slice(i * k, (i + 1) * k) for i in range(parts)]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -265,6 +290,14 @@ class BatchedDeviceProblem:
             caps=_t(cluster.caps, FLOAT, device),
             dt=_t(dt, FLOAT, device), T=cfg.grid)
 
+    def select(self, rows: slice, device) -> "BatchedDeviceProblem":
+        """The problems ``rows`` on ``device``: one problem shard's arrays."""
+        fields = {f.name: getattr(self, f.name) for f in
+                  dataclasses.fields(self) if f.name != "T"}
+        return BatchedDeviceProblem(
+            **{k: (v if k == "caps" else v[rows]).to(device)
+               for k, v in fields.items()}, T=self.T)
+
 
 _LEAF_DTYPES = dict(dur_bins=INT, demands=FLOAT, costs=FLOAT, n_opts=INT,
                     n_real=INT, task_mask=torch.bool, pred_mask=torch.bool,
@@ -323,6 +356,14 @@ class DrawTape:
         return cls(**{k: _t(arrays[k], dt, device)
                       for k, dt in cls._DTYPES.items()})
 
+    def select(self, rows: slice, chains: slice, device) -> "DrawTape":
+        """The draws of problems ``rows`` x chains ``chains`` on
+        ``device``: one shard's part of an unsharded tape."""
+        return DrawTape(**{
+            k: (getattr(self, k)[rows, chains] if k in ("rand_opt", "prio0")
+                else getattr(self, k)[:, rows, chains]).to(device)
+            for k in self._DTYPES})
+
     def check(self, P: int, B: int, J: int, iters: int) -> None:
         want = dict(rand_opt=(P, B, J), prio0=(P, B, J))
         want.update({k: (iters, P, B)
@@ -334,25 +375,33 @@ class DrawTape:
                                  f"needs {shape}")
 
 
-def _problem_generator(seed: int, p: int, device) -> torch.Generator:
+def _problem_generator(seed: int, p: int, device,
+                       stream: Optional[int] = None) -> torch.Generator:
     g = torch.Generator(device=device)
-    g.manual_seed(int(np.random.SeedSequence([seed, p])
+    key = [seed, p] if stream is None else [seed, p, stream]
+    g.manual_seed(int(np.random.SeedSequence(key)
                       .generate_state(1, np.uint64)[0]))
     return g
 
 
-def draw_tape(packed: PackedProblems, cfg: VecConfig, device) -> DrawTape:
+def draw_tape(packed: PackedProblems, cfg: VecConfig, device, *,
+              rows: slice = slice(None), chains: Optional[int] = None,
+              stream: Optional[int] = None) -> DrawTape:
     """The production tape: problem p's draws come from its own generator
     on the device, seeded from (cfg.seed, p) — never from a bulk (P, ...)
     draw — so problem p's stream does not depend on how many problems
     share the batch. That keying is what makes a bucket-padded batch
     reproduce an unbucketed one bit-for-bit (the counterpart of the
-    reference's per-problem ``fold_in(k, p)``)."""
+    reference's per-problem ``fold_in(k, p)``), and a problem-sharded
+    solve reproduce an unsharded one. A chain shard draws ``chains``
+    chains of the problems ``rows`` from streams keyed (cfg.seed, p,
+    ``stream``): each chain shard its own, as the reference folds the
+    chain axis index into each problem's key."""
     P_pad, J = packed.task_mask.shape
-    B, n = cfg.chains, cfg.iters
+    B, n = (cfg.chains if chains is None else chains), cfg.iters
     parts: Dict[str, list] = {k: [] for k in DrawTape._DTYPES}
-    for p in range(P_pad):
-        g = _problem_generator(cfg.seed, p, device)
+    for p in range(P_pad)[rows]:
+        g = _problem_generator(cfg.seed, p, device, stream)
         kw = dict(generator=g, device=device)
         n_mut = max(int(packed.num_tasks[p]), 1)
         n_opts = _t(packed.n_opts[p], INT, device)
@@ -393,6 +442,30 @@ def decode_schedule_batch(dp: DeviceProblem, option_idx, priority, *,
     return kops.sgs_decode(dp.dur_bins[jrow, oi], dp.demands[jrow, oi],
                            priority, dp.release_bins, dp.pred_mask, dp.caps,
                            T=dp.T, use_kernel=use_kernel)
+
+
+def decode_schedule_full(dp: DeviceProblem, option_idx, priority, *,
+                         use_kernel: Optional[bool] = None):
+    """Single-candidate grid-SGS decode (the B=1 case of
+    ``decode_schedule_batch``): option_idx (J,) int32, priority (J,) f32
+    -> (start (J,), finish (J,), placed_ok (J,) bool)."""
+    start, finish, ok = decode_schedule_batch(
+        dp, option_idx[None, :], priority[None, :], use_kernel=use_kernel)
+    return start[0], finish[0], ok[0]
+
+
+def decode_schedule(dp: DeviceProblem, option_idx, priority, *,
+                    use_kernel: Optional[bool] = None):
+    """option_idx (J,) int32, priority (J,) f32 -> (start (J,), makespan,
+    cost, infeasible_count), each a tensor on the problem's device."""
+    start, finish, placed_ok = decode_schedule_full(
+        dp, option_idx, priority, use_kernel=use_kernel)
+    J = dp.costs.shape[0]
+    cost = dp.costs[torch.arange(J, device=dp.costs.device),
+                    option_idx.to(INDEX)].sum()
+    makespan = finish.max().to(FLOAT) * dp.dt
+    infeas = (~placed_ok).sum().to(INT)
+    return start, makespan, cost, infeas
 
 
 def decode_schedule_many(bdp: BatchedDeviceProblem, option_idx, priority, *,
@@ -469,6 +542,49 @@ def _migrate_chains(opt, prio, e, best_opt, best_prio, best_e):
     return opt, prio, e
 
 
+def _exchange(row) -> None:
+    """Replica exchange across the chain shards of one problem block: the
+    collective form of ``_migrate_chains``. Each shard's incumbent (its
+    local argmin) and worst energy are gathered on the first shard's
+    device; the global best is the first shard's on ties, and one owner of
+    the global worst, the first shard holding it, takes it at its local
+    argmax. Shard order is chain order, so this equals ``_migrate_chains``
+    over the chains laid end to end, bit for bit."""
+    if len(row) == 1:
+        st = row[0]
+        st.opt, st.prio, st.e = _migrate_chains(st.opt, st.prio, st.e,
+                                                st.best_opt, st.best_prio,
+                                                st.best_e)
+        return
+    home = row[0].e.device
+    inc_e, inc_opt, inc_prio, worst = [], [], [], []
+    for st in row:
+        p = torch.arange(st.e.shape[0], device=st.e.device)
+        src = st.best_e.argmin(dim=1)
+        inc_e.append(st.best_e[p, src].to(home))
+        inc_opt.append(st.best_opt[p, src].to(home))
+        inc_prio.append(st.best_prio[p, src].to(home))
+        worst.append(st.e.amax(dim=1).to(home))
+    inc_e = torch.stack(inc_e)                                   # (S, P)
+    p = torch.arange(inc_e.shape[1], device=home)
+    g = inc_e.argmin(dim=0)
+    b_e = inc_e[g, p]
+    b_opt = torch.stack(inc_opt)[g, p]
+    b_prio = torch.stack(inc_prio)[g, p]
+    owner = torch.stack(worst).argmax(dim=0)
+    for c, st in enumerate(row):
+        dev = st.e.device
+        mine = (owner == c).to(dev)
+        p = torch.arange(st.e.shape[0], device=dev)
+        dst = st.e.argmax(dim=1)
+        st.opt, st.prio, st.e = st.opt.clone(), st.prio.clone(), st.e.clone()
+        st.opt[p, dst] = torch.where(mine[:, None], b_opt.to(dev),
+                                     st.opt[p, dst])
+        st.prio[p, dst] = torch.where(mine[:, None], b_prio.to(dev),
+                                      st.prio[p, dst])
+        st.e[p, dst] = torch.where(mine, b_e.to(dev), st.e[p, dst])
+
+
 def _telemetry_steps(iters: int, every: int) -> np.ndarray:
     """Sweep indices the telemetry trace samples: every ``every``-th sweep
     plus the final one (the converged incumbent is always visible)."""
@@ -488,28 +604,27 @@ def _jitter_scale(prio_sigma: float) -> float:
                             * np.float32(prio_sigma)))
 
 
-def _sa_loop(energy_fn, cfg: VecConfig, opt0, prio0, tape: DrawTape, *,
-             shared: bool):
-    """Run cfg.iters SA sweeps over (P, B, J) chain states.
+class _Shard:
+    """The (P, B, J) chain states of one shard of a solve: a block of
+    problems x a block of chains, on one device, with the energy function
+    and the draws of its block."""
 
-    Each problem keeps its own chains, proposals and accept decisions, read
-    from its rows of the tape. ``shared`` adds the coupled engine's coherent
-    joint-best tracking and, with ``cfg.joint_accept``, one Metropolis
-    verdict per chain on the summed energy delta. Nothing inside the loop
-    syncs with the host: the temperature and the migration schedule are
-    host numbers fixed by the config."""
-    P_n, B, _ = opt0.shape
-    dev = opt0.device
-    pidx = torch.arange(P_n, device=dev)[:, None]
-    bidx = torch.arange(B, device=dev)[None, :]
-    e0 = energy_fn(opt0, prio0)[0]
-    opt, prio, e = opt0, prio0, e0
-    best_opt, best_prio, best_e = opt0, prio0, e0
-    jbest = (opt0, prio0, e0.sum(dim=0)) if shared else None
-    temp = np.float32(cfg.t0)
-    sigma = _jitter_scale(cfg.prio_sigma)
-    trace = []
-    for it in range(cfg.iters):
+    def __init__(self, energy_fn, opt0, prio0, tape: DrawTape, *,
+                 shared: bool):
+        self.energy_fn, self.tape = energy_fn, tape
+        e0 = energy_fn(opt0, prio0)[0]
+        self.opt, self.prio, self.e = opt0, prio0, e0
+        self.best_opt, self.best_prio, self.best_e = opt0, prio0, e0
+        self.jbest = (opt0, prio0, e0.sum(dim=0)) if shared else None
+        P_n, B, _ = opt0.shape
+        self.pidx = torch.arange(P_n, device=opt0.device)[:, None]
+        self.bidx = torch.arange(B, device=opt0.device)[None, :]
+
+    def sweep(self, it: int, sigma: float, t_eff: float, cfg: VecConfig):
+        """One SA sweep (before the replica exchange); returns the accept
+        mask (P, B)."""
+        tape, pidx, bidx = self.tape, self.pidx, self.bidx
+        opt, prio, e = self.opt, self.prio, self.e
         # propose: mutate one task's option; jitter one task's priority
         j_opt, j_pr = tape.j_opt[it], tape.j_pr[it]
         p_opt = opt.clone()
@@ -517,59 +632,105 @@ def _sa_loop(energy_fn, cfg: VecConfig, opt0, prio0, tape: DrawTape, *,
         p_prio = prio.clone()
         p_prio[pidx, bidx, j_pr] = (prio[pidx, bidx, j_pr]
                                     + tape.jitter[it] * sigma)
-        p_e = energy_fn(p_opt, p_prio)[0]
+        p_e = self.energy_fn(p_opt, p_prio)[0]
 
-        if shared:
+        if self.jbest is not None:
             # joint-best update on the PROPOSAL (a coherent state whose
             # energies were just computed together), before per-tenant
             # accepts mix proposals into per-tenant states
+            jbest = self.jbest
             prop_sum = p_e.sum(dim=0)                                # (B,)
             jb = prop_sum < jbest[2]
-            jbest = (torch.where(jb[None, :, None], p_opt, jbest[0]),
-                     torch.where(jb[None, :, None], p_prio, jbest[1]),
-                     torch.where(jb, prop_sum, jbest[2]))
+            self.jbest = (torch.where(jb[None, :, None], p_opt, jbest[0]),
+                          torch.where(jb[None, :, None], p_prio, jbest[1]),
+                          torch.where(jb, prop_sum, jbest[2]))
 
         dE = p_e - e
-        t_eff = float(max(temp, np.float32(1e-9)))
-        if shared and cfg.joint_accept:
+        if self.jbest is not None and cfg.joint_accept:
             # joint welfare: one verdict per chain on the summed delta,
             # drawn from tenant 0's uniform stream, applied to all tenants
             dE_sum = dE.sum(dim=0)
             acc = (dE_sum < 0) | (torch.exp(-dE_sum / t_eff) > tape.u[it, 0])
-            accept = acc[None, :].expand(P_n, B)
+            accept = acc[None, :].expand_as(dE)
         else:
             accept = (dE < 0) | (torch.exp(-dE / t_eff) > tape.u[it])
-        opt = torch.where(accept[:, :, None], p_opt, opt)
-        prio = torch.where(accept[:, :, None], p_prio, prio)
-        e = torch.where(accept, p_e, e)
+        self.opt = torch.where(accept[:, :, None], p_opt, opt)
+        self.prio = torch.where(accept[:, :, None], p_prio, prio)
+        self.e = torch.where(accept, p_e, e)
 
-        better = e < best_e
-        best_opt = torch.where(better[:, :, None], opt, best_opt)
-        best_prio = torch.where(better[:, :, None], prio, best_prio)
-        best_e = torch.where(better, e, best_e)
+        better = self.e < self.best_e
+        self.best_opt = torch.where(better[:, :, None], self.opt,
+                                    self.best_opt)
+        self.best_prio = torch.where(better[:, :, None], self.prio,
+                                     self.best_prio)
+        self.best_e = torch.where(better, self.e, self.best_e)
+        return accept
 
+
+def _sa_loop(shards, cfg: VecConfig, *, shared: bool):
+    """Run cfg.iters SA sweeps over a grid of shards: rows of problem
+    blocks, each row's entries blocks of the same problems' chains. Every
+    shard is stepped sweep by sweep, so each device's queue stays full;
+    every ``migrate_every`` sweeps each row exchanges replicas across its
+    chain shards (``_exchange``).
+
+    Each problem keeps its own chains, proposals and accept decisions, read
+    from its rows of the tape. ``shared`` adds the coupled engine's coherent
+    joint-best tracking and, with ``cfg.joint_accept``, one Metropolis
+    verdict per chain on the summed energy delta. Nothing inside the loop
+    syncs with the host: the temperature and the migration schedule are
+    host numbers fixed by the config. Returns the state, each chain-indexed
+    tensor laid end to end over the shards on the first shard's device."""
+    rows = [[_Shard(*sh, shared=shared) for sh in row] for row in shards]
+    home = rows[0][0].e.device
+    temp = np.float32(cfg.t0)
+    sigma = _jitter_scale(cfg.prio_sigma)
+    trace = []
+    for it in range(cfg.iters):
+        t_eff = float(max(temp, np.float32(1e-9)))
         do_mig = it % cfg.migrate_every == cfg.migrate_every - 1
-        if do_mig:
-            opt, prio, e = _migrate_chains(opt, prio, e, best_opt,
-                                           best_prio, best_e)
+        sample = []
+        for row in rows:
+            accepts = [st.sweep(it, sigma, t_eff, cfg) for st in row]
+            if do_mig:
+                _exchange(row)
+            if cfg.telemetry:
+                sample.append((_cat([st.best_e for st in row], 1,
+                                    home).amin(dim=1),
+                               _cat(accepts, 1, home).to(FLOAT).mean(dim=1)))
         if cfg.telemetry:
-            trace.append((best_e.amin(dim=1),
-                          accept.to(FLOAT).mean(dim=1), int(do_mig)))
+            trace.append((_cat([b for b, _ in sample], 0, home),
+                          _cat([a for _, a in sample], 0, home), int(do_mig)))
         temp = np.float32(temp * np.float32(cfg.cooling))
 
-    state = dict(opt=opt, prio=prio, e=e, best_opt=best_opt,
-                 best_prio=best_prio, best_e=best_e)
+    def gather(key):
+        return _cat([_cat([getattr(st, key) for st in row], 1, home)
+                     for row in rows], 0, home)
+
+    state = {k: gather(k) for k in ("opt", "prio", "e", "best_opt",
+                                    "best_prio", "best_e")}
     if shared:
-        state.update(jbest_opt=jbest[0], jbest_prio=jbest[1],
-                     jbest_sum=jbest[2])
+        state.update(
+            jbest_opt=_cat([st.jbest[0] for st in rows[0]], 1, home),
+            jbest_prio=_cat([st.jbest[1] for st in rows[0]], 1, home),
+            jbest_sum=_cat([st.jbest[2] for st in rows[0]], 0, home))
     if cfg.telemetry:
         idx = _telemetry_steps(cfg.iters, cfg.telemetry_every)
         mig = np.cumsum([m for _, _, m in trace])[idx]
+        P_n = state["e"].shape[0]
         state.update(
             tel_best_e=torch.stack([b for b, _, _ in trace], dim=1)[:, idx],
             tel_accept=torch.stack([a for _, a, _ in trace], dim=1)[:, idx],
             tel_mig=np.broadcast_to(mig[None, :], (P_n, len(idx))))
     return state
+
+
+def _cat(xs, dim: int, device) -> torch.Tensor:
+    """Shards' tensors laid end to end along ``dim`` on ``device`` (one
+    shard's tensor as it is)."""
+    if len(xs) == 1:
+        return xs[0].to(device)
+    return torch.cat([x.to(device) for x in xs], dim=dim)
 
 
 def _sa_scan(bdp: BatchedDeviceProblem, goal_w, ref_M, ref_C, dl, dl_w,
@@ -579,29 +740,46 @@ def _sa_scan(bdp: BatchedDeviceProblem, goal_w, ref_M, ref_C, dl, dl_w,
     (fully masked bucket-padding problems mutate their inert slot 0)."""
     energy_fn = partial(chain_energy, bdp, goal_w, ref_M, ref_C, dl, dl_w,
                         use_kernel=cfg.use_kernel)
-    return _sa_loop(energy_fn, cfg, opt0, prio0, tape, shared=False)
+    return _sa_loop([[(energy_fn, opt0, prio0, tape)]], cfg, shared=False)
 
 
 _MASKED_PRIO = -1e9   # below any real priority, above the -inf sentinel
 
 
 def _init_chains(packed: PackedProblems, cfg: VecConfig, tape: DrawTape,
-                 device):
+                 device, rows: slice = slice(None), chain0: int = 0):
     """Initial chain states (P, B, J) for both batched engines: even chains
     start from the default configuration, odd ones from random options;
-    priorities are jittered, masked slots pinned to ``_MASKED_PRIO``."""
-    P_n, J = packed.task_mask.shape
-    B = cfg.chains
-    n_opts = _t(packed.n_opts, INT, device)
-    defaults = _t(packed.default_option, INT, device)           # (P, J)
+    priorities are jittered, masked slots pinned to ``_MASKED_PRIO``. A
+    shard takes the problems ``rows`` and the tape's chains, numbered from
+    ``chain0`` (the parity is the chain's number in the whole solve)."""
+    P_n, B, J = tape.rand_opt.shape
+    n_opts = _t(packed.n_opts[rows], INT, device)
+    defaults = _t(packed.default_option[rows], INT, device)     # (P, J)
     opt0 = defaults[:, None, :].expand(P_n, B, J)
     rand_opt = tape.rand_opt % n_opts[:, None, :]
-    even = (torch.arange(B, device=device) % 2 == 0)[None, :, None]
+    even = ((torch.arange(B, device=device) + chain0) % 2 == 0)[None, :, None]
     opt0 = torch.where(even, opt0, rand_opt)
     prio0 = tape.prio0 * cfg.prio_sigma
-    prio0 = torch.where(_t(packed.task_mask, torch.bool, device)[:, None, :],
-                        prio0, _MASKED_PRIO)
+    prio0 = torch.where(
+        _t(packed.task_mask[rows], torch.bool, device)[:, None, :],
+        prio0, _MASKED_PRIO)
     return opt0, prio0
+
+
+def _shard_inputs(packed: PackedProblems, cfg: VecConfig, device,
+                  tape: Optional[DrawTape], rows: slice, chains: slice,
+                  stream: Optional[int]):
+    """(tape, opt0, prio0) of the shard of problems ``rows`` x chains
+    ``chains`` on ``device``: its part of a given tape, or its production
+    draws (``stream`` keys a chain shard's own streams; None where the
+    chains are not split)."""
+    if tape is not None:
+        t = tape.select(rows, chains, device)
+    else:
+        t = draw_tape(packed, cfg, device, rows=rows,
+                      chains=chains.stop - chains.start, stream=stream)
+    return (t, *_init_chains(packed, cfg, t, device, rows, chains.start))
 
 
 def _goal_arrays(goals: Sequence[Goal], padded: int, device):
@@ -661,12 +839,10 @@ def _solve_inputs(problems, cluster, goal, refs, goals):
     return problems, goals, ref_M, ref_C
 
 
-def _tape_for(packed: PackedProblems, cfg: VecConfig, tape, device):
-    if tape is None:
-        return draw_tape(packed, cfg, device)
-    tape.check(packed.padded_problems, cfg.chains, packed.max_tasks,
-               cfg.iters)
-    return tape
+def _check_tape(packed: PackedProblems, cfg: VecConfig, tape) -> None:
+    if tape is not None:
+        tape.check(packed.padded_problems, cfg.chains, packed.max_tasks,
+                   cfg.iters)
 
 
 def vectorized_anneal_many(problems: Sequence[FlatProblem], cluster: Cluster,
@@ -682,25 +858,50 @@ def vectorized_anneal_many(problems: Sequence[FlatProblem], cluster: Cluster,
     (computed with the default scheduler when omitted); ``goals`` gives each
     tenant its own objective; ``bucket_p`` pads the problem axis to a
     power-of-two bucket. ``tape`` replaces the production draws (the tests
-    replay the reference's through it); ``mesh`` is not ported yet.
+    replay the reference's through it).
+
+    ``mesh`` (a (prob, chain) planner mesh, ``launch.mesh.
+    make_planner_mesh``; a 1-D chains mesh counts as one row) shards the
+    solve over its devices, which replace ``device``: problems over the
+    first axis, chains over the second. The problem axis is bucketed up to
+    the mesh. A chain axis of 1 gives the unsharded solve's plans bit for
+    bit; with more, each chain shard draws from its own streams, and a
+    given ``tape`` is split by shard, which again gives the unsharded
+    solve's plans.
     """
-    _no_mesh(mesh)
-    device = resolve_device(device)
     cfg = cfg or VecConfig()
+    grid = _device_grid(mesh, device)
+    home = grid[0, 0]
     t_start = time.monotonic()
     problems, goals, ref_M, ref_C = _solve_inputs(problems, cluster, goal,
                                                   refs, goals)
+    if mesh is not None:
+        # power-of-two device counts divide the power-of-two bucket, and
+        # padded problems are inert, so meshing never changes the plans
+        bucket_p = max(int(bucket_p or 1), grid.shape[0])
     packed = pack_problems(problems, cluster.num_resources, bucket_p=bucket_p)
     P_pad = packed.padded_problems
+    _check_tape(packed, cfg, tape)
     ref_Mp, ref_Cp = _pad_refs(ref_M, ref_C, P_pad)
-    goal_w, dl, dl_w = _goal_arrays(goals, P_pad, device)
-    bdp = BatchedDeviceProblem.build(packed, cluster, ref_Mp, cfg, device)
-    tape = _tape_for(packed, cfg, tape, device)
-    opt0, prio0 = _init_chains(packed, cfg, tape, device)
-    _note_signature("isolated", packed, cfg, device)
-    state = _sa_scan(bdp, goal_w, _t(ref_Mp, FLOAT, device),
-                     _t(ref_Cp, FLOAT, device), dl, dl_w, cfg, opt0, prio0,
-                     tape)
+    weights = (*_goal_arrays(goals, P_pad, home), _t(ref_Mp, FLOAT, home),
+               _t(ref_Cp, FLOAT, home))
+    bdp = BatchedDeviceProblem.build(packed, cluster, ref_Mp, cfg, home)
+    chain_blocks = _split(cfg.chains, grid.shape[1], "chains")
+    shards = []
+    for i, rows in enumerate(_split(P_pad, grid.shape[0], "problems")):
+        row = []
+        for c, chains in enumerate(chain_blocks):
+            dev = grid[i, c]
+            goal_w, dl, dl_w, rM, rC = (x[rows].to(dev) for x in weights)
+            energy_fn = partial(chain_energy, bdp.select(rows, dev), goal_w,
+                                rM, rC, dl, dl_w, use_kernel=cfg.use_kernel)
+            t, opt0, prio0 = _shard_inputs(
+                packed, cfg, dev, tape, rows, chains,
+                c if len(chain_blocks) > 1 else None)
+            row.append((energy_fn, opt0, prio0, t))
+        shards.append(row)
+    _note_signature("isolated", packed, cfg, grid)
+    state = _sa_loop(shards, cfg, shared=False)
 
     best_idx = state["best_e"].argmin(dim=1).cpu().numpy()         # (P,)
     best_opt = state["best_opt"].cpu().numpy()                      # (P, B, J)
@@ -769,6 +970,16 @@ class SharedDeviceProblem:
         return cls(dp, packed.num_problems, packed.max_tasks,
                    _t(packed.num_tasks, INT, device))
 
+    def to(self, device) -> "SharedDeviceProblem":
+        """The same problem on ``device`` (itself where it lies there)."""
+        dp = self.dp
+        return SharedDeviceProblem(
+            DeviceProblem(**{f.name: (getattr(dp, f.name).to(device)
+                                      if f.name not in ("dt", "T")
+                                      else getattr(dp, f.name))
+                             for f in dataclasses.fields(dp)}),
+            self.P, self.J, self.n_real.to(device))
+
 
 def shared_chain_energy(sdp: SharedDeviceProblem, goal_w, ref_M, ref_C,
                         dl, dl_w, option_idx, priority, *, use_kernel=None):
@@ -801,7 +1012,7 @@ def _sa_scan_shared(sdp: SharedDeviceProblem, goal_w, ref_M, ref_C,
     evaluated together)."""
     energy_fn = partial(shared_chain_energy, sdp, goal_w, ref_M, ref_C,
                         dl, dl_w, use_kernel=cfg.use_kernel)
-    return _sa_loop(energy_fn, cfg, opt0, prio0, tape, shared=True)
+    return _sa_loop([[(energy_fn, opt0, prio0, tape)]], cfg, shared=True)
 
 
 def vectorized_anneal_shared(problems: Sequence[FlatProblem], cluster: Cluster,
@@ -818,36 +1029,53 @@ def vectorized_anneal_shared(problems: Sequence[FlatProblem], cluster: Cluster,
     The picked assembly is re-evaluated event-exactly on the host with ONE
     joint serial-SGS pass under the global caps. Returns ``(solutions,
     joint_errors)``; ``joint_errors`` is the event-exact joint validation.
+
+    ``mesh`` (the planner mesh) shards the CHAIN axis over its second axis
+    and runs on the devices of its first row: the coupled decode is joint
+    over the problems, so the first axis is replicated, as in the
+    reference. A chain axis of 1 gives the unsharded solve's plans bit for
+    bit; with more, each chain shard draws from its own streams, or from
+    its part of a given ``tape``.
     """
-    _no_mesh(mesh)
-    device = resolve_device(device)
     cfg = cfg or VecConfig()
+    grid = _device_grid(mesh, device)
+    home = grid[0, 0]
     t_start = time.monotonic()
     from repro_torch.core.annealer import reference_point
     problems, goals, ref_M, ref_C = _solve_inputs(problems, cluster, goal,
                                                   refs, goals)
     packed = pack_problems(problems, cluster.num_resources,
                            shared_capacity=True, bucket_p=bucket_p)
+    _check_tape(packed, cfg, tape)
     layout = packed.shared_layout()
     joint = layout.joint_problem()
     joint_ref = reference_point(joint, cluster)
-    sdp = SharedDeviceProblem.build(layout, cluster, joint_ref[0], cfg, device)
+    sdp = SharedDeviceProblem.build(layout, cluster, joint_ref[0], cfg, home)
     P_pad = packed.padded_problems
     ref_Mp, ref_Cp = _pad_refs(ref_M, ref_C, P_pad)
-    goal_w, dl, dl_w = _goal_arrays(goals, P_pad, device)
-    ref_Mt, ref_Ct = _t(ref_Mp, FLOAT, device), _t(ref_Cp, FLOAT, device)
-    tape = _tape_for(packed, cfg, tape, device)
-    opt0, prio0 = _init_chains(packed, cfg, tape, device)
-    _note_signature("shared", packed, cfg, device)
-    state = _sa_scan_shared(sdp, goal_w, ref_Mt, ref_Ct, dl, dl_w, cfg,
-                            opt0, prio0, tape)
+    goal_w, dl, dl_w = _goal_arrays(goals, P_pad, home)
+    ref_Mt, ref_Ct = _t(ref_Mp, FLOAT, home), _t(ref_Cp, FLOAT, home)
+    chain_blocks = _split(cfg.chains, grid.shape[1], "chains")
+    row = []
+    for c, chains in enumerate(chain_blocks):
+        dev = grid[0, c]
+        energy_fn = partial(shared_chain_energy, sdp.to(dev),
+                            *(x.to(dev) for x in (goal_w, ref_Mt, ref_Ct,
+                                                  dl, dl_w)),
+                            use_kernel=cfg.use_kernel)
+        t, opt0, prio0 = _shard_inputs(
+            packed, cfg, dev, tape, slice(None), chains,
+            c if len(chain_blocks) > 1 else None)
+        row.append((energy_fn, opt0, prio0, t))
+    _note_signature("shared", packed, cfg, grid[:1])
+    state = _sa_loop([row], cfg, shared=True)
 
     # two candidate assemblies, both spanning the full padded batch:
     # (a) selfish — each tenant's best chain; (b) coherent — the best full
     # joint snapshot any chain proposed. A fresh coupled evaluation of both
     # decides; the strict "<" keeps (a) on ties, which is what keeps the
     # disjoint case equal to isolated mode.
-    pp = torch.arange(P_pad, device=device)
+    pp = torch.arange(P_pad, device=home)
     best_idx = state["best_e"].argmin(dim=1)                        # (P',)
     opt_self = state["best_opt"][pp, best_idx]                      # (P', J)
     prio_self = state["best_prio"][pp, best_idx]
@@ -902,11 +1130,14 @@ def vectorized_anneal(problem: FlatProblem, cluster: Cluster, goal: Goal,
                       cfg: Optional[VecConfig] = None,
                       ref: Optional[Tuple[float, float]] = None,
                       mesh=None, *, device=None) -> Solution:
-    """Single-problem solve: the P=1 case of ``vectorized_anneal_many``."""
-    _no_mesh(mesh)
+    """Single-problem solve: the P=1 case of ``vectorized_anneal_many``.
+    A 1-D chains mesh (``launch.mesh.make_solver_mesh``) shards the chains
+    over all its devices, with the exact replica exchange between them;
+    each shard draws from its own streams (the reference gives every shard
+    one key)."""
     refs = None if ref is None else [ref]
     sol = vectorized_anneal_many([problem], cluster, goal, cfg, refs,
-                                 device=device)[0]
+                                 mesh=mesh, device=device)[0]
     sol.solver = "agora-vectorized"
     return sol
 

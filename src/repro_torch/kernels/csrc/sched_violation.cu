@@ -45,6 +45,20 @@
 // the MXU is not carried over: in TF32 the tensor cores would lose too
 // many bits for the contract, and the mask product is exact as an add.
 //
+// The wide path (sched_violation_wide_kernel): any M and any T, for the
+// grids past the register layout's envelope (M > 8, or more than 4096
+// cells). pairwise_sum over the padded N = 4096 S cells reduces the top bits
+// of the cell index first, so its subtrees are residue classes of the cell
+// index modulo S, not contiguous tiles: one block takes one candidate and
+// runs S passes; pass r holds the 4096 cells c = r + S c' (c' laid out over
+// the lanes as above, W = 8, C = 16) and reduces them in the halving order,
+// which sums the class r. The S partial sums are merged in pairwise_sum's
+// order by a binary counter: the passes run in bit-reversed order of r, so
+// each merge adds two classes that differ in the top bit still unreduced.
+// A cell's resource m = c / T varies per register, so in place of the
+// shuffled demands the block stages each 32 tasks' demands in shared
+// memory (M <= 384), or a covered cell reads its own through L1.
+//
 // Exactness traps:
 //   * the mask test is t >= s && t < s + d with s + d rounded in float32,
 //     as in the reference; t - s < d would move the boundary;
@@ -272,6 +286,120 @@ int launch_c(const void* start, const void* dur, const void* dem,
 #undef SV_LAUNCH
 }
 
+constexpr int kWideW = 8;                       // warps: one candidate
+constexpr int kWideC = 16;                      // cells a lane, a pass
+constexpr int kPass = 32 * kWideW * kWideC;     // 4096 cells a pass
+constexpr int kStageM = 384;  // demands staged while M x 32 fit 48 KB
+
+// task j's start and end = start + dur; zeros for j >= J
+__device__ __forceinline__ void load_span(const Rows& row, int j, int J,
+                                          float& s, float& e) {
+  s = 0.0f;
+  e = 0.0f;
+  if (j < J) {
+    s = row.start[j * row.s_j];
+    e = __fadd_rn(s, row.dur[j * row.u_j]);
+  }
+}
+
+// One candidate a block, S passes of 4096 cells (see the header): cells
+// c = r + S (32 w + l + 256 i), i < 16, of the (M, T) grid padded to
+// 4096 S cells; the passes' sums merged in pairwise_sum's order. kStaged:
+// the block stages the demands of each 32 tasks in shared memory (M x 32
+// floats, M <= kStageM), so a covered cell's add waits on shared memory,
+// not on L2; else each covered cell reads its demand through L1.
+template <bool kStaged>
+__global__ void __launch_bounds__(32 * kWideW)
+sched_violation_wide_kernel(const float* __restrict__ start,  // (B, J) strided
+                            const float* __restrict__ dur,    // (B, J) strided
+                            const float* __restrict__ dem,    // (B, M, J) strided
+                            const float* __restrict__ caps,   // (M,)
+                            float* __restrict__ out,          // (B,)
+                            int J, int M, int T, long long S, int log2S,
+                            long long s_b, long long s_j, long long u_b,
+                            long long u_j, long long d_b, long long d_m,
+                            long long d_j) {
+  extern __shared__ float tile[];      // kStaged: [m * 32 + k], M x 32
+  __shared__ float part[32 * kWideW];  // per warp, its 32 partial sums
+  __shared__ float stack[64];          // the merge's pending sums, by level
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const long long b = blockIdx.x;
+  const long long cells = (long long)M * T;
+  const float* dem_b = dem + b * d_b;
+  const Rows row{start + b * s_b, dur + b * u_b, dem_b, s_j, u_j, d_m, d_j};
+
+  for (long long q = 0; q < S; ++q) {
+    const long long r =
+        log2S ? (long long)(__brevll((unsigned long long)q) >> (64 - log2S))
+              : 0;
+    float t[kWideC], u[kWideC];
+    int m[kWideC];
+    bool real[kWideC];
+#pragma unroll
+    for (int i = 0; i < kWideC; ++i) {
+      const long long c = r + S * (32 * w + lane + 32LL * kWideW * i);
+      real[i] = c < cells;
+      m[i] = real[i] ? (int)(c / T) : 0;
+      t[i] = (float)(c - (long long)m[i] * T);  // exact: t < 2^24
+      u[i] = 0.0f;
+    }
+    float cs, ce;
+    load_span(row, lane, J, cs, ce);
+    for (int j0 = 0; j0 < J; j0 += 32) {
+      float ns, ne;                    // the next 32 tasks, in flight
+      load_span(row, j0 + 32 + lane, J, ns, ne);
+      const int nj = min(32, J - j0);
+      if constexpr (kStaged) {
+        __syncthreads();               // the last 32 tasks' tile is read
+        for (int x = threadIdx.x; x < 32 * M; x += 32 * kWideW) {
+          const int k = x & 31;
+          tile[x] = k < nj ? __ldg(dem_b + (long long)(x >> 5) * d_m
+                                   + (long long)(j0 + k) * d_j)
+                           : 0.0f;
+        }
+        __syncthreads();
+      }
+      for (int k = 0; k < nj; ++k) {
+        const float s = __shfl_sync(kFull, cs, k);
+        const float e = __shfl_sync(kFull, ce, k);
+        const float* dj = dem_b + (long long)(j0 + k) * d_j;
+#pragma unroll
+        for (int i = 0; i < kWideC; ++i)
+          if (real[i] && t[i] >= s && t[i] < e)
+            u[i] = __fadd_rn(u[i], kStaged ? tile[m[i] * 32 + k]
+                                           : __ldg(dj + m[i] * d_m));
+      }
+      cs = ns;
+      ce = ne;
+    }
+#pragma unroll
+    for (int i = 0; i < kWideC; ++i)
+      u[i] = real[i] ? fmaxf(__fsub_rn(u[i], __ldg(caps + m[i])), 0.0f)
+                     : 0.0f;
+    halve<kWideC / 2>(u);
+    part[w * 32 + lane] = u[0];
+    __syncthreads();
+    if (w == 0) {
+      float* col = part + lane;        // this lane's column, 8 warps
+      for (int hw = kWideW / 2; hw > 0; hw /= 2)
+        for (int k = 0; k < hw; ++k)
+          col[32 * k] = __fadd_rn(col[32 * k], col[32 * (k + hw)]);
+      float x = col[0];
+#pragma unroll
+      for (int lvl = 4; lvl >= 0; --lvl)
+        x = __fadd_rn(x, __shfl_down_sync(kFull, x, 1 << lvl));
+      if (lane == 0) {                 // merge the class sum: level by level
+        int lvl = 0;
+        for (; (q >> lvl) & 1; ++lvl) x = __fadd_rn(stack[lvl], x);
+        stack[lvl] = x;
+      }
+    }
+    __syncthreads();                   // part is rewritten by the next pass
+  }
+  if (threadIdx.x == 0) out[b] = stack[log2S];
+}
+
 }  // namespace
 
 extern "C" {
@@ -307,6 +435,36 @@ int sched_violation_launch(const void* start, const void* dur,
                                  st, R, W, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The wide path: any M >= 1 and T >= 1; the (M, T) grid padded to 4096 S
+// cells, S a power of two with 4096 S >= M T. One block of 256 threads a
+// candidate. Returns cudaGetLastError() after the launch (0 = ok), or
+// cudaErrorInvalidValue for an S that does not cover the grid.
+int sched_violation_wide_launch(const void* start, const void* dur,
+                                const void* dem, const void* caps, void* out,
+                                int B, int J, int M, int T, long long s_b,
+                                long long s_j, long long u_b, long long u_j,
+                                long long d_b, long long d_m, long long d_j,
+                                long long S, void* stream) {
+  if (B <= 0) return 0;
+  if (M < 1 || T < 1 || J < 0 || S < 1 || (S & (S - 1))
+      || S > (1LL << 40) || (long long)kPass * S < (long long)M * T)
+    return (int)cudaErrorInvalidValue;
+  const int log2S = 63 - __builtin_clzll((unsigned long long)S);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (M <= kStageM)
+    sched_violation_wide_kernel<true>
+        <<<B, 32 * kWideW, (size_t)M * 32 * sizeof(float), st>>>(
+            (const float*)start, (const float*)dur, (const float*)dem,
+            (const float*)caps, (float*)out, J, M, T, S, log2S, s_b, s_j,
+            u_b, u_j, d_b, d_m, d_j);
+  else
+    sched_violation_wide_kernel<false><<<B, 32 * kWideW, 0, st>>>(
+        (const float*)start, (const float*)dur, (const float*)dem,
+        (const float*)caps, (float*)out, J, M, T, S, log2S, s_b, s_j, u_b,
+        u_j, d_b, d_m, d_j);
+  return (int)cudaGetLastError();
 }
 
 const char* sched_violation_error_string(int code) {

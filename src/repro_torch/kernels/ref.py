@@ -131,6 +131,13 @@ def sched_violation_ref(start, dur, dem, caps, T: int):
     exact), and the violation is the ``pairwise_sum`` of the (M, T) excess
     in row-major order.
     """
+    return pairwise_sum(excess_grid(start, dur, dem, caps, T))
+
+
+def excess_grid(start, dur, dem, caps, T: int):
+    """The (B, M * T) excess max(0, usage - caps) that ``sched_violation_ref``
+    sums, cell m * T + t in row-major order; usage adds the tasks in index
+    order."""
     start = start.to(FLOAT)
     end = start + dur.to(FLOAT)
     dem = dem.to(FLOAT)
@@ -143,7 +150,7 @@ def sched_violation_ref(start, dur, dem, caps, T: int):
         # the product is exact, so a fused multiply-add rounds as an add
         usage.addcmul_(dem[:, :, j, None], mask[:, None, j, :])
     over = torch.clamp(usage - caps.to(FLOAT)[None, :, None], min=0.0)
-    return pairwise_sum(over.reshape(B, M * T))
+    return over.reshape(B, M * T)
 
 
 def usl_runtime_ref(n, alpha, beta, gamma, work):

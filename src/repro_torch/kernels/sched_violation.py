@@ -6,8 +6,10 @@ The kernel (``csrc/sched_violation.cu``) replaces the Pallas TPU kernel
 on the card and how the design answers that: each candidate's (M, T) grid
 in the registers of W warps, the tasks broadcast by shuffle, no barrier in
 the task loop. ``geometry`` picks R, W, C and the layout K from the
-shape and the card's SM count, and refuses, with a ``ValueError``, a
-grid beyond the envelope (M <= 8, M * T <= 4096 cells). ``start``,
+shape and the card's SM count. Past the register layout's envelope (M > 8,
+or more than 4096 cells) the wide path takes any M and T: one block a
+candidate, S passes of 4096 cells, each pass a residue class of the cell
+index modulo S, merged in ``pairwise_sum``'s order. ``start``,
 ``dur`` and ``dem`` are read through their strides, so the ising loop's
 transposed ``dem`` view costs no copy. ``kernels/_build.py`` compiles
 the kernel at first use; it is called through ``ctypes`` on PyTorch's
@@ -33,6 +35,9 @@ MAX_C = 16
 MAX_THREADS = 512   # a block's threads, as csrc/sched_violation.cu allows
 
 
+WIDE = (1, 8, 16)   # the wide path's R, W, C: 4096 cells a pass
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.sched_violation_launch.argtypes = ([ctypes.c_void_p] * 5
                                            + [ctypes.c_int] * 4
@@ -40,6 +45,11 @@ def _bind(lib: ctypes.CDLL) -> None:
                                            + [ctypes.c_int] * 4
                                            + [ctypes.c_void_p])
     lib.sched_violation_launch.restype = ctypes.c_int
+    lib.sched_violation_wide_launch.argtypes = ([ctypes.c_void_p] * 5
+                                                + [ctypes.c_int] * 4
+                                                + [ctypes.c_longlong] * 8
+                                                + [ctypes.c_void_p])
+    lib.sched_violation_wide_launch.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
@@ -51,6 +61,11 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def is_wide(M: int, N: int) -> bool:
+    """Whether an (M, T) grid padded to N cells takes the wide path."""
+    return M > MAX_M or N > MAX_CELLS
+
+
 def geometry(B: int, M: int, T: int, sms: int):
     """(R candidates per block, W warps per candidate, C cells per lane, K
     layout, N cells) of a launch over B candidates of an (M, T) grid on a
@@ -59,14 +74,15 @@ def geometry(B: int, M: int, T: int, sms: int):
     cells. K is T / (32 W) where that is a power of two (the bin-major
     layout: one interval test a bin serves all M resources), else 0 (the
     general layout, any T). R doubles while every SM still gets a block, to
-    at most 512 threads a block. Raises ``ValueError`` beyond the envelope:
-    M > 8 or M * T > 4096."""
-    if not 1 <= M <= MAX_M or T < 1 or M * T > MAX_CELLS:
-        raise ValueError(f"sched_violation: an (M {M}, T {T}) grid is "
-                         f"outside the kernel's envelope (1 <= M <= "
-                         f"{MAX_M}, M * T <= {MAX_CELLS} cells); nothing "
-                         f"was launched")
+    at most 512 threads a block. Past the envelope (``is_wide``: M > 8 or
+    N > 4096) the wide path's ``WIDE`` geometry, K 0, and N at least 4096:
+    it runs N / 4096 passes of 4096 cells."""
+    if M < 1 or T < 1:
+        raise ValueError(f"sched_violation: an (M {M}, T {T}) grid has no "
+                         f"cells; nothing was launched")
     N = max(MIN_CELLS, 1 << (M * T - 1).bit_length())
+    if is_wide(M, N):
+        return (*WIDE, 0, max(N, MAX_CELLS))
     C = min(MAX_C, N // 32)
     W = N // (32 * C)
     K, rest = divmod(T, 32 * W)
@@ -107,16 +123,25 @@ def sched_violation(start, dur, dem, caps, *, T: int, geom=None):
                          f"{tuple(dem.shape)} caps {tuple(caps.shape)} T {T}")
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    R, W, C, K = geom or geometry(B, M, int(T), _sms(index))[:4]
+    R, W, C, K, N = geometry(B, M, int(T), _sms(index))
+    wide = is_wide(M, N)
+    if geom is not None:
+        if wide:
+            raise ValueError("sched_violation: the wide path takes no "
+                             "geometry")
+        R, W, C, K = geom
     out = torch.empty((B,), dtype=FLOAT, device=device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.sched_violation_launch(
-            start.data_ptr(), dur.data_ptr(), dem.data_ptr(),
-            caps.data_ptr(), out.data_ptr(), B, J, M, int(T),
-            *start.stride(), *dur.stride(), *dem.stride(), R, W, C, K,
-            stream)
+        ptrs = (start.data_ptr(), dur.data_ptr(), dem.data_ptr(),
+                caps.data_ptr(), out.data_ptr(), B, J, M, int(T),
+                *start.stride(), *dur.stride(), *dem.stride())
+        if wide:
+            rc = lib.sched_violation_wide_launch(*ptrs, N // MAX_CELLS,
+                                                 stream)
+        else:
+            rc = lib.sched_violation_launch(*ptrs, R, W, C, K, stream)
     _build.check_launch("sched_violation", lib, rc)
     _build.count_launch(sched_violation)
     return out

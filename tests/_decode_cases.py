@@ -93,6 +93,15 @@ SCHED_ENVELOPE_SHAPES = [(16, 40, 8, 300), (4, 33, 8, 512), (8, 33, 2, 96),
                          (8, 33, 2, 192), (4, 20, 1, 288)]
 
 
+# sched_violation (B, J, M, T) past that envelope, on the wide path: the
+# ising engine at IsingConfig(grid=2048) on paper_cluster() (M 4, 8192
+# cells, two passes), one cell past 4096, a ninth resource, 12 resources
+# (12288 cells, four passes), the shared ising width J 166, and 400
+# resources (more than the wide path stages in shared memory)
+SCHED_WIDE_SHAPES = [(512, 10, 4, 2048), (16, 7, 1, 4097), (16, 9, 9, 16),
+                     (8, 33, 12, 1024), (8, 166, 4, 2048), (4, 40, 400, 16)]
+
+
 def sched_instance(B, J, M, T):
     """start, dur (B, J), dem (B, M, J), caps (M,) float32, seeded as
     tests/test_kernels.py seeds them."""

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from _decode_cases import (MAIN_PATH_SHAPES, SCHED_ENVELOPE_SHAPES,
-                           SCHED_MAIN_SHAPES, SCHED_SHAPES, USL_SHAPES,
-                           kernel_cases, sched_instance, usl_instance)
+                           SCHED_MAIN_SHAPES, SCHED_SHAPES, SCHED_WIDE_SHAPES,
+                           USL_SHAPES, kernel_cases, sched_instance,
+                           usl_instance)
 from repro_torch.cluster.catalog import alibaba_cluster
 from repro_torch.cluster.workloads import synth_trace
 from repro_torch.core import dag as tdag
@@ -177,17 +178,124 @@ def test_sched_violation_general_layout_equals_bin_major(card, B, J, M, T):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("M,T", [(1, 4097), (9, 16)])
-def test_sched_violation_refuses_grid_beyond_envelope(card, M, T):
-    """One cell past the envelope (M * T = 4097), or a ninth resource,
-    raises before any launch; nothing is truncated."""
-    B, J = 4, 3
-    args = [torch.zeros((B, J), device=card), torch.ones((B, J), device=card),
-            torch.ones((B, M, J), device=card), torch.ones((M,), device=card)]
+@pytest.mark.parametrize("transposed", [False, True],
+                         ids=["contiguous", "transposed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,J,M,T", SCHED_WIDE_SHAPES)
+def test_sched_violation_wide_path_exactly(card, B, J, M, T, dtype,
+                                           transposed):
+    """Past the register envelope (M 4 x T 2048, the ising engine at grid
+    2048; one cell past 4096; M 9; M 12; J 166) the wide path launches once
+    and equals the plain version bit for bit, with dem contiguous or as the
+    ising loop passes it."""
+    start, dur, dem, caps = sched_instance(B, J, M, T)
+    start, dur, caps = (torch.from_numpy(x).to(card) for x in
+                        (start, dur, caps))
+    dem = torch.from_numpy(dem).to(card)
+    if transposed:
+        dem = dem.transpose(1, 2).contiguous().transpose(1, 2)
+        assert dem.stride()[::2] == (J * M, M)
+    start, dur, dem = (x.to(dtype) for x in (start, dur, dem))
+    assert sv_kernel.is_wide(M, sv_kernel.geometry(B, M, T, 132)[4])
     n = sv_kernel.sched_violation.launches
-    with pytest.raises(ValueError, match="envelope"):
-        ops.sched_violation(*args, T=T)
-    assert sv_kernel.sched_violation.launches == n
+    got = ops.sched_violation(start, dur, dem, caps, T=T)
+    assert sv_kernel.sched_violation.launches == n + 1
+    want = ops.sched_violation(start, dur, dem.contiguous(), caps, T=T,
+                               use_kernel=False)
+    torch.cuda.synchronize()
+    assert got.shape == (B,) and torch.equal(got, want)
+    assert (got > 0).any()
+    free = ops.sched_violation(start, dur, dem, torch.full_like(caps, 1e9),
+                               T=T)
+    assert torch.equal(free, torch.zeros_like(free))
+
+
+def test_ising_serves_grid_2048_through_the_wide_path(card):
+    """``ising_anneal(..., IsingConfig(grid=2048))`` on ``paper_cluster()``
+    (M 4, 8192 cells): a valid plan, iters + 1 kernel launches."""
+    from repro_torch.cluster.catalog import paper_cluster
+    from repro_torch.cluster.workloads import dag1
+    from repro_torch.core.sgs import validate_schedule
+    pc = paper_cluster()
+    prob = tdag.flatten([dag1(pc)], pc.num_resources)
+    cfg = ising.IsingConfig(grid=2048)
+    n = sv_kernel.sched_violation.launches
+    sol = ising.ising_anneal(prob, pc, Goal.balanced(), cfg, device=card)
+    assert sv_kernel.sched_violation.launches == n + cfg.iters + 1
+    assert validate_schedule(prob, sol.option_idx, sol.start, sol.finish,
+                             pc.caps) == []
+
+
+# the first J that sgs_decode refuses at M 2, T 256 (a shared pool's
+# decode), as the card's shared memory per block bounds it
+FIRST_REFUSED_J = 1194
+
+
+def test_sgs_decode_ceiling_is_pinned(card):
+    """At M 2, T 256 the decode takes J 1193 and refuses J 1194, whatever
+    the rows: a shared pool of 64 tenants at Jmax 14 (J 896) fits, one of
+    128 (J 1792) does not."""
+    M, T = 2, 256
+    for rows in (8, 256):
+        assert kernel.geometry(rows, FIRST_REFUSED_J - 1, M, T, rows)[3]
+        assert not kernel.geometry(rows, FIRST_REFUSED_J, M, T, rows)[3]
+    assert kernel.geometry(256, 64 * 14, M, T, 256)[3]
+    assert not kernel.geometry(256, 128 * 14, M, T, 256)[3]
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
+@pytest.mark.parametrize("shared", [False, True], ids=["isolated", "shared"])
+def test_mesh_solves_on_one_card(card, shared, shape):
+    """A (2, 1) or (1, 2) planner mesh over one card: valid plans, one
+    decode launch a sweep per shard (and one at the start)."""
+    from repro_torch.core.sgs import validate_schedule
+    from repro_torch.launch.mesh import make_planner_mesh
+    cluster = alibaba_cluster(machines=20)
+    dags = synth_trace(3, cluster, seed=11)
+    for d in dags:
+        d.release_time = 0.0
+    probs = [tdag.flatten([d], cluster.num_resources) for d in dags]
+    cfg = vec.VecConfig(chains=8, iters=40, grid=128, seed=0)
+    mesh = make_planner_mesh(chains=shape[1], devices=[card] * 2)
+    n = kernel.sgs_decode.launches
+    if shared:
+        sols, joint = vec.vectorized_anneal_shared(
+            probs, cluster, Goal.balanced(), cfg, mesh=mesh)
+        assert joint == []
+        shards, extra = shape[1], 1
+    else:
+        sols = vec.vectorized_anneal_many(probs, cluster, Goal.balanced(),
+                                          cfg, bucket_p=4, mesh=mesh)
+        shards, extra = 2, 0
+    assert kernel.sgs_decode.launches - n == shards * (cfg.iters + 1) + extra
+    for p, sol in zip(probs, sols):
+        assert validate_schedule(p, sol.option_idx, sol.start, sol.finish,
+                                 cluster.caps) == []
+
+
+@pytest.mark.parametrize("cell", ["isolated", "shared", "ising-isolated",
+                                  "ising-shared"])
+def test_quality_rule_holds_on_the_card(card, cell):
+    """The full fixture (``tests/torch_golden/quality_full.json``): the
+    cell's plans on the card's production draws are valid and hold the
+    rule of ``tests/_quality.py`` against the reference's energies."""
+    import importlib
+    import json
+    import os
+
+    import _quality as q
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "torch_golden", "quality_full.json")
+    with open(path) as f:
+        ref = {int(s): m for s, m in
+               json.load(f)["cells"][cell]["seeds"].items()}
+    api = q.modules({m: importlib.import_module(f"repro_torch.{m}")
+                     for m in q.MODULES}, device=card)
+    means, errors = q.sweep(api, cell, "full", seeds=sorted(ref))
+    assert errors == []
+    holds, mean, bound = q.check({s: m for s, (m, _) in means.items()}, ref)
+    assert holds, (cell, mean, bound, means)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -27,7 +27,8 @@ def test_package_has_the_slice_modules():
                  "kernels.usl_runtime", "core.vectorized", "core.ising",
                  "core.session", "core.agora", "cluster.workloads",
                  "obs.sink", "flow.chaos", "flow.executor", "flow.streaming",
-                 "flow.daemon", "launch.serve_planner", "launch.obs_report"):
+                 "flow.daemon", "launch.serve_planner", "launch.obs_report",
+                 "launch.mesh", "core.predictor"):
         assert "repro_torch." + name in mods
 
 
@@ -55,7 +56,8 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
     """``chip_smoke.py`` and the test cases it reads import neither jax nor
     anything of ``repro``, at any depth of the file."""
     import ast
-    for path in ("chip_smoke.py", os.path.join("tests", "_decode_cases.py")):
+    for path in ("chip_smoke.py", os.path.join("tests", "_decode_cases.py"),
+                 os.path.join("tests", "_quality.py")):
         with open(os.path.join(ROOT, path)) as f:
             tree = ast.parse(f.read())
         names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)

@@ -16,8 +16,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.sched_energy import sched_violation as j_sched_pallas
 from _decode_cases import (SCHED_ENVELOPE_SHAPES, SCHED_MAIN_SHAPES,
-                           SCHED_SHAPES, USL_SHAPES, sched_instance,
-                           usl_instance)
+                           SCHED_SHAPES, SCHED_WIDE_SHAPES, USL_SHAPES,
+                           sched_instance, usl_instance)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sched_violation as sv_kernel
 
@@ -90,8 +90,17 @@ def test_sched_violation_geometry_covers_envelope(B, sms):
 
 @pytest.mark.parametrize("M,T", [(9, 1), (1, 4097), (8, 513), (2, 0)])
 def test_sched_violation_geometry_refuses_beyond_envelope(M, T):
-    with pytest.raises(ValueError, match="envelope"):
-        sv_kernel.geometry(512, M, T, 132)
+    """Past the register layout's envelope the launch leaves it for the
+    wide path (one candidate a block, N / 4096 passes of 4096 cells, N the
+    grid padded to a power of two, at least 4096); a grid with no cells
+    raises."""
+    if T == 0:
+        with pytest.raises(ValueError, match="no cells"):
+            sv_kernel.geometry(512, M, T, 132)
+        return
+    R, W, C, K, N = sv_kernel.geometry(512, M, T, 132)
+    assert sv_kernel.is_wide(M, N) and (R, W, C) == sv_kernel.WIDE
+    assert K == 0 and N == max(4096, 1 << (M * T - 1).bit_length())
 
 
 def test_sched_violation_geometry_of_ising_shape():
@@ -133,6 +142,63 @@ def _kernel_order_sum(x: torch.Tensor, W: int, C: int) -> torch.Tensor:
         src = torch.where(lane + h < 32, lane + h, lane)
         v = v + v[:, src]
     return v[:, 0]
+
+
+def _wide_order_sum(x: torch.Tensor, S: int) -> torch.Tensor:
+    """The wide path's sum of x (B, 4096 S), in plain torch: pass r sums
+    the cells r + S c', c' < 4096, in the register layout's order (8 warps
+    of 16 cells a lane); the passes run in bit-reversed order of r and a
+    binary counter merges their sums, older + newer, level by level."""
+    log2 = S.bit_length() - 1
+    assert x.shape[1] == 4096 * S and S == 1 << log2
+    stack = {}
+    for q in range(S):
+        r = int(format(q, f"0{log2}b")[::-1], 2) if log2 else 0
+        v, lvl = _kernel_order_sum(x[:, r::S], 8, 16), 0
+        while (q >> lvl) & 1:
+            v, lvl = stack[lvl] + v, lvl + 1
+        stack[lvl] = v
+    return stack[log2]
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_sched_violation_wide_order_is_pairwise_sum(S):
+    """The wide path's order equals ``pairwise_sum``'s, bit for bit, on
+    float32 data of mixed signs and magnitudes, for a grid of any length
+    (padded with +0 to 4096 S cells), where summing contiguous tiles and
+    adding the tiles' sums would not."""
+    rng = np.random.default_rng(S)
+    for n in (4096 * S, 4096 * S - 2045, 4096 * S // 2 + 1):
+        x = (rng.uniform(-1, 1, (32, n))
+             * 10.0 ** rng.uniform(-8, 8, (32, n))).astype(np.float32)
+        x = torch.from_numpy(x)
+        padded = torch.nn.functional.pad(x, (0, 4096 * S - n))
+        want = ref.pairwise_sum(x)
+        assert torch.equal(_wide_order_sum(padded, S), want)
+        if S > 1:
+            tiles = torch.stack([_kernel_order_sum(t, 8, 16) for t in
+                                 padded.split(4096, dim=1)], dim=1)
+            assert not torch.equal(ref.pairwise_sum(tiles), want)
+
+
+@pytest.mark.parametrize("B,J,M,T", SCHED_WIDE_SHAPES)
+def test_sched_violation_wide_path_order_is_exact(B, J, M, T):
+    """On the wide path's shapes (the ising engine at grid 2048 on four
+    resources, one cell past 4096, M 9, M 12, J 166), the emulated order of
+    the wide kernel over the excess grid equals ``sched_violation_ref``
+    with ``torch.equal``, and the plain version agrees with the JAX
+    reference within its tolerance."""
+    start, dur, dem, caps = (torch.from_numpy(x)
+                             for x in sched_instance(B, J, M, T))
+    N = sv_kernel.geometry(B, M, T, 132)[4]
+    over = ref.excess_grid(start, dur, dem, caps, T)
+    got = _wide_order_sum(torch.nn.functional.pad(over, (0, N - M * T)),
+                          N // 4096)
+    want = ref.sched_violation_ref(start, dur, dem, caps, T)
+    assert torch.equal(got, want)
+    jwant = np.asarray(jref.sched_violation_ref(
+        *(jnp.asarray(x.numpy()) for x in (start, dur, dem, caps)), T))
+    np.testing.assert_allclose(want.numpy(), jwant, rtol=2e-5, atol=2e-4)
 
 
 @pytest.mark.parametrize("N", [32 << k for k in range(8)])

@@ -1,7 +1,7 @@
 """The port's front door on the CPU: ``Agora`` and ``PlannerSession``.
 
 Plans from both solvers validate, the signature count (``trace_count``)
-stays flat after ``warmup``, the unported mesh paths raise, and the copied
+stays flat after ``warmup``, meshes route to their engines, and the copied
 framework-free modules give the JAX package's results for the same seeds.
 """
 import numpy as np
@@ -77,11 +77,21 @@ def test_trace_count_flat_after_warmup(shared):
 
 
 def test_unported_engines_raise():
+    """No engine is left unported: ``Agora(mesh=)`` and ``session(mesh=)``
+    take a planner mesh (the batched engines shard on it) or a chains mesh
+    (the host loop over the sharded single-problem solve), as the
+    reference routes them; an object that is no mesh still raises."""
+    from repro_torch.launch.mesh import make_planner_mesh, make_solver_mesh
     cluster = tcat.paper_cluster()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Agora(cluster, solver="vectorized", mesh=object(), device="cpu")
-    agora = Agora(cluster, solver="vectorized", vec_cfg=SMALL, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    planner = make_planner_mesh(chains=1, devices=["cpu", "cpu"])
+    chains = make_solver_mesh(devices=["cpu", "cpu"])
+    agora = Agora(cluster, solver="vectorized", vec_cfg=SMALL, mesh=planner,
+                  device="cpu")
+    assert agora.session().engine.key == "isolated"
+    assert agora.session(shared_capacity=True).engine.key == "shared"
+    assert agora.session(mesh=chains).engine.key == "host-anneal"
+    assert agora.session(mesh=None).engine.key == "isolated"
+    with pytest.raises(AttributeError):
         agora.session(mesh=object())
 
 

@@ -284,3 +284,91 @@ def test_port_telemetry_leaves_plans_unchanged(shared):
         assert list(tel["steps"]) == [6, 13, 20, 27, 34, 39]
         assert np.all(np.diff(tel["best_e"]) <= 0)      # incumbent monotone
         assert np.all((tel["accept"] >= 0) & (tel["accept"] <= 1))
+
+
+# --- the B=1 decode wrappers ---------------------------------------------
+
+
+def _random_problems(dag_mod, rng, P, M=2):
+    """tests/test_packing.py's ``_random_problems``, built in the package
+    of ``dag_mod`` (its ``DAG``, ``Task``, ``TaskOption``, ``flatten``)."""
+    problems = []
+    for _ in range(P):
+        J = int(rng.integers(2, 12))
+        tasks = []
+        for j in range(J):
+            n_opt = int(rng.integers(1, 4))
+            options = []
+            for o in range(n_opt):
+                d = float(rng.uniform(1, 50))
+                dem = tuple(float(x) for x in rng.uniform(0.1, 3.0, M))
+                options.append(dag_mod.TaskOption(f"o{o}", d, dem,
+                                                  d * sum(dem)))
+            tasks.append(dag_mod.Task(
+                f"t{j}", options, default_option=int(rng.integers(0, n_opt))))
+        edges = [(a, b) for a in range(J) for b in range(a + 1, J)
+                 if rng.random() < 0.3]
+        dag = dag_mod.DAG("d", tasks, edges,
+                          release_time=float(rng.uniform(0, 100)))
+        problems.append(dag_mod.flatten([dag], M))
+    return problems
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_b1_decode_wrappers_match_reference(seed):
+    """tests/test_packing.py::test_padding_never_moves_real_tasks' inputs:
+    each problem of a ragged batch decoded alone (its own build) and as a
+    slice of the batch (padding slots live), by ``decode_schedule`` and
+    ``decode_schedule_full`` in both packages. start, finish, ok, the
+    makespan and the infeasible count are equal; the cost, a float32 sum
+    of J terms that the two frameworks may add in another order, within
+    rtol 1e-6."""
+    from repro.cluster.catalog import Cluster, InstanceType
+    M = 2
+    jprobs = _random_problems(jdag, np.random.default_rng(seed), 4, M)
+    tprobs = _random_problems(tdag, np.random.default_rng(seed), 4, M)
+    rng = np.random.default_rng(seed + 100)
+    jc = Cluster(tuple(InstanceType(f"r{m}", 1, 1, 3.6) for m in range(M)),
+                 (4, 4))
+    tc = TCluster(tuple(TInstanceType(f"r{m}", 1, 1, 3.6)
+                        for m in range(M)), (4, 4))
+    jcfg, tcfg = jvec.VecConfig(grid=128), tvec.VecConfig(grid=128)
+    refs = np.asarray([sum(o.duration for t in p.tasks for o in t.options[:1])
+                       + 1.0 for p in jprobs])
+    packed = jdag.pack_problems(jprobs, M)
+    bdp = jvec.BatchedDeviceProblem.build(packed, jc, refs, jcfg)
+    tbdp = tvec.BatchedDeviceProblem.build(
+        tdag.pack_problems(tprobs, M), tc, refs, tcfg, device=CPU)
+    Jmax = packed.max_tasks
+    for p, (jprob, tprob) in enumerate(zip(jprobs, tprobs)):
+        J = jprob.num_tasks
+        opt = rng.integers(0, 1_000_000, Jmax) % np.asarray(packed.n_opts[p])
+        prio = rng.normal(size=Jmax)
+        prio[J:] = -1e9
+        j_sl = jvec.DeviceProblem(bdp.dur_bins[p], bdp.demands[p],
+                                  bdp.costs[p], bdp.n_opts[p],
+                                  bdp.pred_mask[p], bdp.release_bins[p],
+                                  bdp.caps, float(bdp.dt[p]), bdp.T)
+        t_sl = tvec.DeviceProblem(tbdp.dur_bins[p], tbdp.demands[p],
+                                  tbdp.costs[p], tbdp.n_opts[p],
+                                  tbdp.pred_mask[p], tbdp.release_bins[p],
+                                  tbdp.caps, float(tbdp.dt[p]), tbdp.T)
+        cases = [(j_sl, t_sl, opt, prio),
+                 (jvec.DeviceProblem.build(jprob, jc, float(refs[p]), jcfg),
+                  tvec.DeviceProblem.build(tprob, tc, float(refs[p]), tcfg,
+                                           device=CPU),
+                  opt[:J], prio[:J])]
+        for jdp, tdp, o, pr in cases:
+            jo, jp = jnp.asarray(o, jnp.int32), jnp.asarray(pr, jnp.float32)
+            to = torch.tensor(o, dtype=torch.int32)
+            tp = torch.tensor(pr, dtype=torch.float32)
+            for w, g in zip(jvec.decode_schedule_full(jdp, jo, jp),
+                            tvec.decode_schedule_full(tdp, to, tp)):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            s_w, mk_w, c_w, inf_w = jvec.decode_schedule(jdp, jo, jp)
+            s_g, mk_g, c_g, inf_g = tvec.decode_schedule(tdp, to, tp)
+            np.testing.assert_array_equal(s_g.numpy(), np.asarray(s_w))
+            assert mk_g.dtype == torch.float32 and c_g.dtype == torch.float32
+            assert float(mk_g) == float(mk_w)
+            assert int(inf_g) == int(inf_w) and inf_g.dtype == torch.int32
+            np.testing.assert_allclose(float(c_g), float(c_w), rtol=1e-6)
