@@ -67,17 +67,29 @@ Phases, each failing loudly (no phase's failure is caught):
    version; (c) the isolated and shared solves of phase 3's shapes
    unsharded and on (1, 1), (2, 1) and (1, 2) planner meshes over the one
    card: valid plans, ``sgs_decode`` launches per sharded solve, the
-   (1, 1) mesh's plans equal to the unsharded ones; (d) the decode's
-   shape ceiling: ``sgs_decode_geometry`` (warps, shared memory, the
-   card's limit, rc) for shared pools of 8 to 128 tenants at Jmax 14, the
-   first J the card refuses at M 2, T 256, and a launch at the largest J
-   it takes against the plain version;
+   (1, 1) mesh's plans equal to the unsharded ones; (d) ``sgs_decode``'s
+   wide path, past the fast path's shared memory: J 1194, 1792 and 4096
+   at M 2, T 256 route to it and equal the plain version bit for bit
+   (ms per launch beside the bound), and a shared ``PlannerSession`` pool
+   of 128 tenants at Jmax 14 (J 1792) warms and serves valid plans
+   through it, every decode on the wide path;
 7. plan quality against the reference (``tests/_quality.py``): the four
    cells of phases 3 and 4 on the card's production draws for the solver
    seeds of ``tests/torch_golden/quality_full.json`` (the reference's
    energies from CPU JAX): every plan valid, and each cell's mean energy
    over the seeds at most the reference's mean plus two standard errors
-   of its seed spread.
+   of its seed spread;
+8. the dense model family (``repro_torch.launch.serve_model.serve``) at
+   full width, weights drawn from seed 0 and held in bfloat16:
+   ``smollm-360m`` (32 layers, d_model 960), ``yi-6b`` (32 layers,
+   d_model 4096) and ``granite-20b`` (52 layers, d_model 6144) each serve
+   a batch of 4 (prompt 16, 32 greedy tokens); decode ms per step, tokens
+   per second, peak memory, the matrix products' share of a profiled
+   step and the step's least time are printed; ``smollm-360m``'s
+   teacher-forced logits on the card must agree with the port's CPU run
+   of the same weights within the bfloat16 tolerance of
+   ``tests/_model_cases.py``, and in float32 within its float32 rule.
+   No kernel of the port runs on this path.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
@@ -91,7 +103,8 @@ the same tasks scaled to T 256, and on phase 6a's live inputs.
 256 configurations of contiguous float32 inputs, so that the call runs
 no copy kernel; each timed call's PyTorch ops are recorded and the run
 fails if one of them copies. The build fails if ptxas reports a spill in
-any of ``sched_violation``'s kernels, the wide path's among them.
+any of ``sched_violation``'s or ``sgs_decode``'s kernels, the wide paths'
+among them.
 
 Prints the card's name and power limit, the control plane's numbers
 (warmup, dispatch and submit-to-result seconds, hit rates, availability)
@@ -967,42 +980,214 @@ def meshes(dev, gpu, cfg, kernel):
                 f"unsharded solve: {same} ({gpu})")
 
 
-def decode_ceiling(dev, gpu, kernel, ops):
-    """Phase 6d: ``sgs_decode``'s shape ceiling, measured: the launch
-    geometry (``csrc/sgs_decode.cu:sgs_decode_geometry``) of the shared
-    decode at M 2, T 256, 256 chain rows, for buckets of 8 to 128 tenants
-    at Jmax 14; the first J the card refuses; and one launch at the
-    largest J it takes, against the plain version."""
+def wide_decode(dev, gpu, cfg, kernel, ops):
+    """Phase 6d: ``sgs_decode``'s wide path, past the fast path's shared
+    memory. At M 2, T 256: J 1194 (the first J the fast path refuses), 1792
+    (a shared pool of 128 tenants at Jmax 14) and 4096 (256 tenants at Jmax
+    16), 8 rows each, route to it and equal the plain version bit for bit,
+    timed beside their bounds; then a shared ``PlannerSession`` pool of 128
+    tenants at ``VecConfig()`` warms and serves valid plans through it.
+    Returns (the pool's wide launches, one captured decode of the pool)."""
     import numpy as np
     import torch
-    from _decode_cases import grouped_instance
+    from _decode_cases import wide_instance
 
-    M, T, rows, jmax = 2, 256, 256, 14
-    for bucket in (8, 16, 32, 64, 128):
-        J = bucket * jmax
-        warps, smem, limit, fits = kernel.geometry(rows, J, M, T, rows)
-        log(f"[sgs_decode_geometry] bucket {bucket} x Jmax {jmax} = J {J}, "
-            f"M {M}, T {T}, {rows} rows: warps {warps}, smem {smem} B, "
-            f"limit {limit} B, rc {0 if fits else -1} ({gpu})")
-    lo, hi = 1, 2049            # takes lo; refuses hi (64 words of slots)
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        if kernel.geometry(rows, mid, M, T, rows)[3]:
-            lo = mid
-        else:
-            hi = mid
-    # eight rows: the plain version gathers a (rows, J, J) precedence a step
-    args = [torch.from_numpy(a).to(dev) for a in
-            grouped_instance(np.random.default_rng(3), 1, 8, lo, M, T)[1]]
-    t0 = time.monotonic()
-    same_outputs(ops.sgs_decode(*args, T=T, use_kernel=True),
-                 ops.sgs_decode(*args, T=T, use_kernel=False))
+    from repro_torch.cluster.catalog import alibaba_cluster
+    from repro_torch.cluster.workloads import synth_trace
+    from repro_torch.core.agora import Agora
+
+    M, T, rows = 2, 256, 8
+    rng = np.random.default_rng(5)
+    for J in (1194, 1792, 4096):
+        args = [torch.from_numpy(a).to(dev) for a in
+                wide_instance(rng, 1, rows, J, M, T)]
+        route, _, smem, limit, scratch = kernel.geometry(rows, J, M, T, rows)
+        if route != "wide":
+            fail(f"[sgs_decode wide] J {J}: routed to {route}")
+        out = ops.sgs_decode(*args, T=T, use_kernel=True)
+        same_outputs(out, ops.sgs_decode(*args, T=T, use_kernel=False))
+        ms = kernel_ms(lambda: kernel.sgs_decode(*args, T=T), 5)
+        plain_ms = time_ms(lambda: ops.sgs_decode(*args, T=T,
+                                                  use_kernel=False), reps=1)
+        bound_ms, bound_by, nbytes, nops = bound(args, out, T)
+        log(f"[sgs_decode wide] rows {rows} J {J} M {M} T {T}: route "
+            f"{route}, {smem} B shared memory a block (limit {limit}), "
+            f"{scratch} B scratch; kernel == plain version; kernel {ms:.4f} "
+            f"ms/launch on the device ({ms * 1e3 / J:.3f} us per step), "
+            f"plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+            f"{nbytes} B, {nops} ops) ({gpu})")
+
+    cluster = alibaba_cluster(machines=20)
+    dags = synth_trace(128, cluster, seed=3)
+    for d in dags:
+        d.release_time = 0.0           # the tenants contend for the cores
+    template = max(dags, key=lambda d: d.num_tasks)
+    sess = Agora(cluster, solver="vectorized", vec_cfg=cfg,
+                 device=dev).session(shared_capacity=True, bucket_p=128)
     torch.cuda.synchronize()
-    log(f"[sgs_decode_geometry] the ceiling at M {M}, T {T}: J {lo} fits "
-        f"({kernel.geometry(rows, lo, M, T, rows)[1]} B), J {hi} is the "
-        f"first refused; one launch of 8 rows at J {lo} equals the plain version "
-        f"({time.monotonic() - t0:.1f} s with it) ({gpu})")
-    return hi
+    kernel.sgs_decode.launches = kernel.sgs_decode.wide_launches = 0
+    t0 = time.monotonic()
+    sess.warmup(template)
+    warm_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    with Capture(ops, "sgs_decode", at=cfg.iters // 2) as cap:
+        res = sess.plan(dags)
+    torch.cuda.synchronize()
+    plan_s = time.monotonic() - t0
+    launches, wide = (kernel.sgs_decode.launches,
+                      kernel.sgs_decode.wide_launches)
+    errs = [e for r in res for e in r.validate()]
+    joint = [e for r in res for e in r.plan.joint_errors]
+    if len(res) != len(dags) or errs or joint:
+        fail(f"[pool 128] {len(res)} plans for {len(dags)}, invalid "
+             f"{errs[:3]}, joint violations {joint[:3]}")
+    need = 2 * (cfg.iters + 2)          # warmup and one batch
+    if wide < need or wide != launches:
+        fail(f"[pool 128] sgs_decode launched {launches} times, {wide} on "
+             f"the wide path (expected {need}, all wide)")
+    rows, J = cap.args[0].shape
+    log(f"[pool 128] a shared session of 128 tenants (Jmax "
+        f"{template.num_tasks}, bucket 128: decode rows {rows}, J {J}) on "
+        f"alibaba_cluster(machines=20): warmup {warm_s:.3f} s, a batch of "
+        f"128 in {plan_s:.3f} s, every plan valid, no joint violation; "
+        f"sgs_decode launches {launches}, {wide} on the wide path ({gpu})")
+    return wide, (cap.args, cap.T)
+
+
+def serve_models(dev, gpu):
+    """Phase 8: the dense model family served at full width through
+    ``repro_torch.launch.serve_model.serve`` (batch 4, prompt 16, 32 greedy
+    tokens, weights drawn from seed 0): ``smollm-360m`` twice (cold, warm),
+    ``yi-6b`` and ``granite-20b`` once, tokens of the right shape in the
+    vocabulary. For
+    each: decode ms per token step (CUDA events over 16 warm steps), tokens
+    per second including prefill, peak memory, the share of a profiled
+    step's device time in matrix products, and the least time of a step
+    (its bfloat16 weights read once over HBM). ``smollm-360m``'s
+    teacher-forced logits over the 16 prompt positions, on the card and on
+    the CPU from the same weights, must agree within the bfloat16
+    tolerance of ``tests/_model_cases.py``, and run in float32 within its
+    ``f32_tolerance``: bfloat16's tolerance is wide enough to pass a wrong
+    computation, float32's is not."""
+    import numpy as np
+    import torch
+    from _model_cases import bf16_tolerance, f32_tolerance
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_model import serve
+    from repro_torch.models.transformer import Model
+
+    B, P, G = 4, 16, 32
+
+    def teacher_forced(model, prompt):
+        cache = model.init_cache(B, P + G)
+        out = []
+        for t in range(P):
+            logits, cache = model.decode_step(
+                cache, {"tokens": prompt[:, t:t + 1]}, t)
+            out.append(logits)
+        return torch.cat(out, 1), cache
+
+    for arch, runs in (("smollm-360m", 2), ("yi-6b", 1), ("granite-20b", 1)):
+        cfg = get_config(arch)
+        for run in range(runs):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            res = serve(arch, smoke=False, batch=B, prompt_len=P,
+                        gen_tokens=G, seed=0, quiet=True, device=dev)
+            peak = torch.cuda.max_memory_allocated(dev)
+            toks = res["tokens"]
+            if toks.shape != (B, G) or toks.min() < 0 or \
+                    toks.max() >= cfg.vocab_size:
+                fail(f"[serve {arch}] tokens {toks.shape} outside the "
+                     f"vocabulary")
+            log(f"[serve {arch}] {'cold' if run == 0 else 'warm'}: {B} x {G} "
+                f"tokens after a prompt of {P} in {res['seconds']:.3f} s, "
+                f"{B * (P + G) / res['seconds']:.1f} tokens/s including "
+                f"prefill, {res['seconds'] * 1e3 / (P + G):.3f} ms a step "
+                f"as served; peak memory {peak / 2 ** 30:.3f} GiB "
+                f"({torch.cuda.max_memory_allocated(dev)} B) ({gpu})")
+        model = Model(cfg, seed=0, device=dev)
+        prompt = torch.as_tensor(res["prompt"], dtype=torch.int32,
+                                 device=dev)
+        logits, cache = teacher_forced(model, prompt)
+        if logits.shape != (B, P, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            fail(f"[serve {arch}] teacher-forced logits "
+                 f"{tuple(logits.shape)} not finite")
+        if arch == "smollm-360m":
+            host = Model(cfg, device="cpu", params=model.params())
+            want, _ = teacher_forced(host, prompt.cpu())
+            got = logits.float().cpu()
+            want = want.float()
+            err = float((got - want).abs().max())
+            tol = bf16_tolerance(cfg.num_layers, want)
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            log(f"[serve {arch}] teacher-forced logits over {P} prompt "
+                f"positions, card against CPU from the same weights: max "
+                f"abs err {err:.5f}, mean abs err "
+                f"{float((got - want).abs().mean()):.6f}, bfloat16 "
+                f"tolerance {tol:.5f} (max |logit| "
+                f"{float(want.abs().max()):.4f}); argmax agrees at "
+                f"{agree:.4f} of the positions ({gpu})")
+            if err > tol:
+                fail(f"[serve {arch}] card and CPU logits differ by {err}, "
+                     f"beyond the bfloat16 tolerance {tol}")
+            # the same weights in float32: the two devices differ only in
+            # the order of their float32 sums
+            c32 = cfg.replace(dtype="float32")
+            got32, _ = teacher_forced(Model(c32, device=dev,
+                                            params=model.params()), prompt)
+            want32, _ = teacher_forced(Model(c32, device="cpu",
+                                             params=host.params()),
+                                       prompt.cpu())
+            err32 = float((got32.cpu() - want32).abs().max())
+            tol32 = f32_tolerance(cfg.num_layers)
+            agree32 = float((got32.argmax(-1).cpu() == want32.argmax(-1))
+                            .float().mean())
+            log(f"[serve {arch}] the same in float32: max abs err "
+                f"{err32:.6f}, float32 tolerance {tol32:.6f} (max |logit| "
+                f"{float(want32.abs().max()):.4f}); argmax agrees at "
+                f"{agree32:.4f} of the positions ({gpu})")
+            if err32 > tol32:
+                fail(f"[serve {arch}] card and CPU float32 logits differ by "
+                     f"{err32}, beyond the float32 tolerance {tol32}")
+            del host, got32, want32
+        # a warm decode step at position P, timed and profiled
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        step = lambda: model.decode_step(cache, {"tokens": nxt}, P)
+        ms = time_ms(step, reps=16)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA)
+        mm = sum(e.device_time_total for e in events
+                 if e.key in ("aten::mm", "aten::bmm"))
+        dt = cfg.cdtype
+        weights = sum(int(w.numel()) * w.element_size()
+                      for blk in model.blocks
+                      for part in ("attn", "mlp")
+                      for w in blk[part].values())
+        weights += int(model.head.numel()) * model.head.element_size()
+        kv = 2 * cfg.num_layers * B * (P + G) * cfg.num_kv_heads * \
+            cfg.head_dim * torch.finfo(dt).bits // 8
+        bound_ms = weights / HBM_BYTES_PER_S * 1e3
+        log(f"[serve {arch}] decode step at batch {B}: {ms:.3f} ms a step "
+            f"(CUDA events, 16 warm steps), {B * 1e3 / ms:.1f} tokens/s; "
+            f"one profiled step: device busy {busy / 1e3:.3f} ms, of it "
+            f"matrix products (aten::mm, aten::bmm) {mm / 1e3:.3f} ms, a "
+            f"share of {mm / max(busy, 1e-9):.3f}; least time "
+            f"{bound_ms:.4f} ms ({weights} B of {dt} weights over HBM; the "
+            f"KV cache adds {kv} B), {bound_ms / ms:.3f} of it reached "
+            f"({gpu})")
+        del model, cache, logits
+        torch.cuda.empty_cache()
 
 
 def quality(dev, gpu):
@@ -1102,6 +1287,14 @@ def main(argv=None) -> int:
             for entry, regs, st, ld in entries:
                 log(f"[build] {name}: {entry[:60]}: {regs} registers, spill "
                     f"stores {st} B, loads {ld} B")
+            if name == "sgs_decode":
+                # the fast path, the wide path and its prep
+                if len(entries) != 3:
+                    fail(f"ptxas reports {len(entries)} sgs_decode kernels, "
+                         f"expected 3")
+                spilled = [e for e, _, st, ld in entries if st or ld]
+                if spilled:
+                    fail(f"ptxas spills in sgs_decode {spilled}")
             continue
         # one kernel per (C cells a lane, K bins a row, MM resources), and
         # the wide path's kernel (256 threads a block)
@@ -1352,7 +1545,7 @@ def main(argv=None) -> int:
     wide_launches, wide_args = wide_grid(dev, gpu, icfg)
     b1_wrappers(dev, kernel)
     meshes(dev, gpu, cfg, kernel)
-    decode_ceiling(dev, gpu, kernel, ops)
+    pool_wide, pool_decode = wide_decode(dev, gpu, cfg, kernel, ops)
 
     # kernel numbers at the paths' shapes ------------------------------------
     entries = []
@@ -1384,7 +1577,7 @@ def main(argv=None) -> int:
         bound_ms, bound_by, nbytes, nops = bound(args, out_k, T)
         rows, J = args[0].shape
         M, G = args[5].shape[0], k_args[3].shape[0]
-        warps, smem, _, _ = kernel.geometry(rows, J, M, T, rows // G)
+        _, warps, smem, _, _ = kernel.geometry(rows, J, M, T, rows // G)
         log(f"[{name}] decode rows {rows} J {J} M {M} T {T}: kernel "
             f"{ms:.4f} ms/launch on the device, {ms * 1e3 / J:.3f} us per "
             f"step ({call_ms:.4f} ms per call as launched; {warps} rows per "
@@ -1393,6 +1586,29 @@ def main(argv=None) -> int:
             f"{nbytes} B, {nops} ops)")
         entry(f"sgs_decode[{name}]", results[name]["launches"], err, ms,
               plain_ms, bound_ms, bound_by)
+
+    # the wide path, on a decode of phase 6d's 128-tenant pool
+    args, T = pool_decode
+    k_args = [args[0].contiguous(), args[1].contiguous(), args[2].contiguous(),
+              *[x.contiguous() for x in ops._ref.as_groups(args[3], args[4])],
+              args[5].contiguous()]
+    out_k = ops.sgs_decode(*args, T=T, use_kernel=True)
+    err = same_outputs(out_k, ops.sgs_decode(*args, T=T, use_kernel=False))
+    call_ms = time_ms(lambda: kernel.sgs_decode(*k_args, T=T), 5)
+    ms = kernel_ms(lambda: kernel.sgs_decode(*k_args, T=T), 5)
+    plain_ms = time_ms(lambda: ops.sgs_decode(*args, T=T, use_kernel=False),
+                       reps=1)
+    bound_ms, bound_by, nbytes, nops = bound(args, out_k, T)
+    rows, J = args[0].shape
+    route, _, smem, _, scratch = kernel.geometry(rows, J, args[5].shape[0], T,
+                                                 rows // k_args[3].shape[0])
+    log(f"[pool 128] decode rows {rows} J {J} T {T}: route {route} ({smem} "
+        f"B shared memory a block, {scratch} B scratch): kernel {ms:.4f} "
+        f"ms/launch on the device, {ms * 1e3 / J:.3f} us per step ({call_ms:.4f} "
+        f"ms per call as launched), plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {nops} ops)")
+    entry("sgs_decode[wide]", pool_wide, err, ms, plain_ms, bound_ms,
+          bound_by)
 
     empty_ms = kernel_ms(lambda: torch.cuda._sleep(0), 200)
     log(f"[launch floor] an empty kernel (torch.cuda._sleep(0)), back to "
@@ -1524,6 +1740,9 @@ def main(argv=None) -> int:
 
     # 7. plan quality against the reference ----------------------------------
     quality(dev, gpu)
+
+    # 8. the dense model family at full width -----------------------------------
+    serve_models(dev, gpu)
 
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -131,11 +131,11 @@ def use_build_dir(path) -> None:
         _loaded.clear()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, exactly, whichever threads launch
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Add one to ``wrapper.<counter>``, exactly, whichever threads launch
     at once (a bare ``+= 1`` on an attribute can lose an increment)."""
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def check_tensor(kernel: str, name: str, x, dtypes, dim: int,

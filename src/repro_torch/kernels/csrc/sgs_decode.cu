@@ -69,11 +69,40 @@
 // re-placed slot counts its successors down again, so such inputs lie
 // outside the contract.
 //
+// The wide path. A group whose precedence and one row's state do not fit
+// a block's shared memory on that design (J past about 1190 at M 2, T
+// 256), or whose slots do not fit a lane's 64-bit eligibility mask (J >
+// 2048), goes to a second kernel, sgs_decode_wide_kernel;
+// sgs_decode_geometry picks the path from the shape and the card. Same
+// algorithm, same exactness, one block of kWideThreads threads per chain
+// row:
+//   * a prep kernel turns each group's (J, J) precedence into a successor
+//     bitmask succ[g][p] (ceil(J/32) words) and a predecessor count per
+//     slot, once per launch, in global scratch that the wrapper allocates;
+//     a step reads one row of it (J/8 bytes), L2-resident (401 KB a group
+//     at J 1792);
+//   * the row's (M, T) usage and its slot state sit in the block's shared
+//     memory where they fit, else in that scratch (generic pointers, one
+//     code path);
+//   * thread i owns the slot words w with w % kWideThreads == i: their
+//     eligibility bits, counts and ready bins, so releasing the successors
+//     of a placed slot needs no atomics, and it keeps the least rank of its
+//     eligible slots. Ranks are unique, so the step's argmax (first index
+//     on ties) is a block min over those, and a rank -> slot table names
+//     the slot;
+//   * warp 0 runs the fast path's window search (steps 3-5) on the usage
+//     while the other warps wait at the block's barrier.
+// Two block barriers a step: latency-bound like the fast path, with a
+// block reduction in place of one warp redux.
+//
 // ptxas (sm_90a, -O3 --fmad=false -Xptxas -v, CUDA 12.8): 64 registers
 // (the cap of __launch_bounds__(256, 4)), no spills, no static shared
 // memory; the dynamic shared memory of a block is block_bytes + W *
 // warp_bytes below: 20,400 bytes at the isolated shape (W = 8) and 45,840
-// at the shared shape (W = 4).
+// at the shared shape (W = 4). The wide kernel: 88 registers (under the
+// cap of __launch_bounds__(128, 4)), no spills, 48 bytes of static shared
+// memory; a row's state is 75,760 bytes at J 1792, M 2, T 256, and a
+// step takes about 1.3 us on an H100 (PERF.md).
 //
 // Exactness traps (each one breaks bit-for-bit parity):
 //   * caps + 1e-6 is float32 arithmetic in the reference. A bare 1e-6 is a
@@ -427,17 +456,309 @@ sgs_decode_kernel(const int32_t* __restrict__ dur,      // (rows, J)
   }
 }
 
+// --- the wide path ---------------------------------------------------------
+
+constexpr int kWideThreads = 128;
+constexpr int kWideWarps = kWideThreads / 32;
+
+// One row's state on the wide path, as byte offsets from its base:
+// rank, sor (rank -> slot), dur, rdy, start, npred, rel, pkey [J] (4 bytes
+// each) | elig [NW] (u32) | dem [J * M] | usage [M * T] | caps_eps [M]
+// (f32) | st [J] (u8: bit 0 ok, bit 1 placed)
+struct WideState {
+  size_t rank, sor, dur, rdy, start, npred, rel, pkey, elig, dem, usage,
+      caps, st, bytes;
+  __host__ __device__ WideState(int J, int M, int T) {
+    const size_t nj = (size_t)J, nw = ((size_t)J + 31) / 32;
+    rank = 0;
+    sor = rank + 4 * nj;
+    dur = sor + 4 * nj;
+    rdy = dur + 4 * nj;
+    start = rdy + 4 * nj;
+    npred = start + 4 * nj;
+    rel = npred + 4 * nj;
+    pkey = rel + 4 * nj;
+    elig = pkey + 4 * nj;
+    dem = elig + 4 * nw;
+    usage = dem + 4 * nj * (size_t)M;
+    caps = usage + 4 * (size_t)M * T;
+    st = caps + 4 * (size_t)M;
+    bytes = align16(st + nj);
+  }
+};
+
+// every group's successor bitmask and predecessor counts, zeroed before
+// the prep: succ [G][J][NW] (u32) | npred0 [G][J] (i32)
+__host__ __device__ __forceinline__ size_t wide_succ_words(int G, int J) {
+  return (size_t)G * J * (((size_t)J + 31) / 32);
+}
+
+__host__ __device__ __forceinline__ size_t wide_prep_bytes(int G, int J) {
+  return align16(4 * (wide_succ_words(G, J) + (size_t)G * J));
+}
+
+// one block per (group g, slot s): the predecessors p of s (row s of
+// pred[g]) set bit s of succ[g][p] and count into npred0[g][s]
+__global__ void __launch_bounds__(kWideThreads)
+sgs_decode_wide_prep(const uint8_t* __restrict__ pred, int J,
+                     uint32_t* __restrict__ succ, int* __restrict__ npred0) {
+  const size_t gs = blockIdx.x;                  // g * J + s
+  const size_t g = gs / (size_t)J;
+  const int s = (int)(gs - g * J);
+  const size_t NW = ((size_t)J + 31) / 32;
+  const uint8_t* row = pred + gs * J;
+  int n = 0;
+  for (int p = threadIdx.x; p < J; p += kWideThreads)
+    if (row[p]) {
+      atomicOr(&succ[(g * J + p) * NW + (s >> 5)], 1u << (s & 31));
+      ++n;
+    }
+  n = __reduce_add_sync(kFull, n);
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(&npred0[gs], n);
+}
+
+// the least v over the block, to every thread. red holds a word a warp;
+// a caller reusing red passes a barrier first
+__device__ __forceinline__ uint32_t block_min(uint32_t v, uint32_t* red) {
+  v = __reduce_min_sync(kFull, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  uint32_t out = red[0];
+#pragma unroll
+  for (int w = 1; w < kWideWarps; ++w) out = min(out, red[w]);
+  return out;
+}
+
+// at most 4 blocks an SM (shared memory allows 3 at J 1792, M 2, T 256),
+// so up to 128 registers a thread: without the block count ptxas keeps
+// 64-72 and spills 8-12 bytes (the row's output base, a loop bound)
+__global__ void __launch_bounds__(kWideThreads, 4)
+sgs_decode_wide_kernel(const int32_t* __restrict__ dur,      // (rows, J)
+                       const float* __restrict__ dem,        // (rows, J, M)
+                       const float* __restrict__ prio,       // (rows, J)
+                       const int32_t* __restrict__ release,  // (G, J)
+                       const uint32_t* __restrict__ succ,    // (G, J, NW)
+                       const int* __restrict__ npred0,       // (G, J)
+                       const float* __restrict__ caps,       // (M,)
+                       int32_t* __restrict__ start,          // (rows, J)
+                       int32_t* __restrict__ finish,         // (rows, J)
+                       uint8_t* __restrict__ ok,             // (rows, J)
+                       unsigned char* state_global,  // null: shared memory
+                       int J, int M, int T, int rows_per_group) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t red[2][kWideWarps];  // alternate: one barrier a use
+  __shared__ int sel[2];                   // the step's t* and ok
+  const int NW = (J + 31) >> 5;
+  const int K = (T + 31) >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const size_t row = blockIdx.x;
+  const size_t g = row / (size_t)rows_per_group;
+  const WideState L(J, M, T);
+  unsigned char* base = state_global ? state_global + row * L.bytes : smem;
+  uint32_t* rank = reinterpret_cast<uint32_t*>(base + L.rank);
+  int* sor = reinterpret_cast<int*>(base + L.sor);
+  int* dur_s = reinterpret_cast<int*>(base + L.dur);
+  int* rdy = reinterpret_cast<int*>(base + L.rdy);
+  int* start_s = reinterpret_cast<int*>(base + L.start);
+  int* npred = reinterpret_cast<int*>(base + L.npred);
+  int* rel = reinterpret_cast<int*>(base + L.rel);
+  uint32_t* pkey = reinterpret_cast<uint32_t*>(base + L.pkey);
+  uint32_t* elig = reinterpret_cast<uint32_t*>(base + L.elig);
+  float* dem_s = reinterpret_cast<float*>(base + L.dem);
+  float* usage = reinterpret_cast<float*>(base + L.usage);
+  float* caps_eps = reinterpret_cast<float*>(base + L.caps);
+  uint8_t* st = base + L.st;
+  const uint32_t* succ_g = succ + g * (size_t)J * NW;
+
+  // --- staging ----------------------------------------------------------------
+  for (int s = tid; s < J; s += kWideThreads) {
+    dur_s[s] = dur[row * J + s];
+    pkey[s] = order_key(prio[row * J + s]);
+    rel[s] = release[g * J + s];
+    npred[s] = npred0[g * J + s];
+    rdy[s] = 0;
+    start_s[s] = 0;
+    st[s] = 0;
+  }
+  for (size_t i = tid; i < (size_t)J * M; i += kWideThreads)
+    dem_s[i] = dem[row * J * (size_t)M + i];
+  for (int i = tid; i < M * T; i += kWideThreads) usage[i] = 0.0f;
+  for (int m = tid; m < M; m += kWideThreads)
+    caps_eps[m] = __fadd_rn(caps[m], 1e-6f);
+  __syncthreads();
+  // each slot's rank in (priority descending, index ascending): unique, so
+  // sor inverts it; the slots scored -inf rank last, from n_fin up
+  uint32_t inf = 0;          // this thread's slots scored -inf
+  for (int s = tid; s < J; s += kWideThreads) {
+    const uint32_t ks = pkey[s];
+    uint32_t r = 0;
+    for (int q = 0; q < J; ++q) {
+      const uint32_t kq = pkey[q];
+      r += kq > ks || (kq == ks && q < s);
+    }
+    rank[s] = r;
+    sor[r] = s;
+    inf += ks <= kNegInfKey;
+  }
+  inf = __reduce_add_sync(kFull, inf);
+  if (lane == 0) red[0][tid >> 5] = inf;
+  __syncthreads();
+  uint32_t n_fin = (uint32_t)J;
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) n_fin -= red[0][w];
+  uint32_t best = kNone;     // least rank of this thread's eligible slots
+  for (int w = tid; w < NW; w += kWideThreads) {
+    uint32_t bits = 0;
+    for (int b = 0, s = 32 * w; b < 32 && s < J; ++b, ++s)
+      if (npred[s] == 0) {
+        bits |= 1u << b;
+        best = min(best, rank[s]);
+      }
+    elig[w] = bits;
+  }
+  // red[0] is read above and written again only after the first step's
+  // barrier in block_min(red[1]), which every thread passes after reading
+
+  // --- the J placement steps ----------------------------------------------------
+  for (int step = 0; step < J; ++step) {
+    // 1. argmax over eligible scores, first index on ties: the least rank
+    //    (the barrier inside also publishes the previous step's writes)
+    const uint32_t top = block_min(best, red[(step + 1) & 1]);
+    int j;
+    if (top == kNone || top >= n_fin) {
+      // the best score is -inf: the reference's argmax then takes the
+      // first slot scored -inf, eligible or not
+      uint32_t lowest = kNone;
+      for (int w = tid; w < NW && lowest == kNone; w += kWideThreads) {
+        const uint32_t e = elig[w];
+        for (int b = 0, s = 32 * w; b < 32 && s < J; ++b, ++s)
+          if (!((e >> b) & 1u) || rank[s] >= n_fin) {
+            lowest = (uint32_t)s;
+            break;
+          }
+      }
+      j = (int)block_min(lowest, red[step & 1]);
+    } else {
+      j = sor[top];
+    }
+
+    // 2-5. warp 0: the chosen slot's window, as the fast path's steps 3-5
+    const int d = dur_s[j];
+    const int ready = max(rel[j], rdy[j]);
+    if (tid < 32) {
+      const int t0 = max(ready, 0);
+      int first = INT_MAX;
+      if (d == 0) {
+        if (t0 < T) first = t0;
+      } else if (t0 + d <= T) {
+        int last_flag = -1;      // last overloaded bin in [t0, 32k)
+        for (int k = t0 >> 5; k < K; ++k) {
+          const int e = (k << 5) + lane;
+          bool flag = false;
+          if (e >= t0 && e < T)
+            for (int m = 0; m < M; ++m) {
+              const float rm = dem_s[(size_t)j * M + m];
+              if (rm > 0.0f
+                  && __fadd_rn(usage[(size_t)m * T + e], rm) > caps_eps[m])
+                flag = true;
+            }
+          const uint32_t word = __ballot_sync(kFull, flag);
+          const uint32_t upto = word & (kFull >> (31 - lane));
+          const int last = upto ? (k << 5) + 31 - __clz(upto) : last_flag;
+          const int t = e - d + 1;
+          const uint32_t clean =
+              __ballot_sync(kFull, t >= t0 && e < T && last < t);
+          if (clean) {
+            first = (k << 5) + __ffs(clean) - 1 - d + 1;
+            break;
+          }
+          if (word) last_flag = (k << 5) + 31 - __clz(word);
+        }
+      }
+      if (lane == 0) {
+        sel[0] = first != INT_MAX ? first : max(ready, T - d);
+        sel[1] = first != INT_MAX;
+      }
+    }
+    __syncthreads();
+    const int tstar = sel[0];
+    const bool any_ok = sel[1] != 0;
+    const int fin = tstar + d;
+
+    // 6. demand into the usage window, clipped to the grid: one add per
+    //    (bin, resource), by one thread
+    const int lo = max(tstar, 0);
+    const int hi = min(fin, T);
+    for (int i = tid; i < (hi - lo) * M; i += kWideThreads) {
+      const int t = lo + i / M, m = i - (i / M) * M;
+      float* u = usage + (size_t)m * T + t;
+      *u = __fadd_rn(*u, dem_s[(size_t)j * M + m]);
+    }
+    bool rescan = false;     // this thread's best slot left the eligible set
+    if (tid == (j >> 5) % kWideThreads) {
+      start_s[j] = tstar;
+      st[j] = any_ok ? 3 : 2;
+      elig[j >> 5] &= ~(1u << (j & 31));
+      rescan = true;
+    }
+    // release the successors of j on the words this thread owns
+    const uint32_t* sj = succ_g + (size_t)j * NW;
+    for (int w = tid; w < NW; w += kWideThreads) {
+      uint32_t bits = sj[w];
+      if (!bits) continue;
+      uint32_t e = elig[w];
+      while (bits) {
+        const int b = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int s = 32 * w + b;
+        const int c = npred[s] - 1;
+        npred[s] = c;
+        rdy[s] = max(rdy[s], fin);
+        const bool now = c == 0 && !(st[s] & 2);
+        if (now != (bool)((e >> b) & 1u)) {
+          e ^= 1u << b;
+          if (now) best = min(best, rank[s]);
+          else rescan = true;
+        }
+      }
+      elig[w] = e;
+    }
+    if (rescan) {
+      best = kNone;
+      for (int w = tid; w < NW; w += kWideThreads)
+        for (uint32_t e = elig[w]; e; e &= e - 1)
+          best = min(best, rank[32 * w + __ffs(e) - 1]);
+    }
+  }
+  __syncthreads();
+
+  // --- write the row out, coalesced ---------------------------------------------
+  for (int s = tid; s < J; s += kWideThreads) {
+    const size_t o = row * J + s;
+    const int f = st[s];
+    start[o] = start_s[s];
+    finish[o] = (f & 2) ? start_s[s] + dur_s[s] : 0;
+    ok[o] = (uint8_t)(f & 1);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Rows per block (*warps) and dynamic shared memory per block (*smem) for
-// a launch of this shape on the current device, and the card's limit per
-// block (*limit). Returns 0, -1 when one row's state and its group's
-// precedence do not fit one block (*warps = 1, *smem what it would need),
-// or a CUDA error code.
+// The launch geometry of this shape on the current device. The fast path:
+// returns 0 with *warps = W rows a block and *smem its dynamic shared
+// memory. The wide path (one row's state and its group's precedence past
+// a block's shared memory on the fast path, or J > 2048): returns 0 with
+// *warps = 0, one row a block, *smem the row's state in shared memory, or
+// 0 where it does not fit and lives in the scratch. *scratch is the global
+// scratch the launch needs (0 on the fast path), *limit the card's shared
+// memory per block. Returns -1 when the inputs, outputs and scratch
+// together exceed the card's memory, else a CUDA error code.
 int sgs_decode_geometry(int rows, int J, int M, int T, int rows_per_group,
-                        int* warps, long long* smem, long long* limit) {
+                        int* warps, long long* smem, long long* limit,
+                        long long* scratch) {
   int dev = 0, sms = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -446,43 +767,90 @@ int sgs_decode_geometry(int rows, int J, int M, int T, int rows_per_group,
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
+  *limit = optin;
+  *scratch = 0;
   const size_t fixed = block_bytes(J, M), per = warp_bytes(J, M, T);
   int W = kMaxWarps;
   while (W > 1 && rows_per_group % W) W >>= 1;
   if (rows < 4 * sms && W > 4) W = 4;     // a scheduler for every row
   while (W > 1 && fixed + W * per > (size_t)optin) W >>= 1;
-  *warps = W;
-  *smem = (long long)(fixed + W * per);
-  *limit = optin;
-  // a lane's eligible slots are one 64-bit mask: J <= 2048, a bound the
-  // successor mask's J * ceil(J/32) words reach first
-  return *smem > optin || (J + 31) / 32 > kMaxSlotWords ? -1 : 0;
+  // a lane's eligible slots are one 64-bit mask: J <= 2048
+  if (fixed + W * per <= (size_t)optin && (J + 31) / 32 <= kMaxSlotWords) {
+    *warps = W;
+    *smem = (long long)(fixed + W * per);
+    return 0;
+  }
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, sgs_decode_wide_kernel);
+  if (e != cudaSuccess) return (int)e;
+  const int G = rows_per_group > 0 ? rows / rows_per_group : 0;
+  const WideState L(J, M, T);
+  const bool in_shared = L.bytes + attr.sharedSizeBytes <= (size_t)optin;
+  *warps = 0;
+  *smem = in_shared ? (long long)L.bytes : 0;
+  *scratch = (long long)(wide_prep_bytes(G, J)
+                         + (in_shared ? 0 : (size_t)rows * L.bytes));
+  size_t free_b = 0, total_b = 0;
+  e = cudaMemGetInfo(&free_b, &total_b);
+  if (e != cudaSuccess) return (int)e;
+  const size_t io = (size_t)rows * J * (4 + 4 * (size_t)M + 4 + 9)
+                  + (size_t)G * J * (4 + (size_t)J) + 4 * (size_t)M;
+  return io + (size_t)*scratch > total_b ? -1 : 0;
 }
 
-// Launch on `stream`; returns -1 for a shape beyond one block's shared
-// memory (nothing launched), else cudaGetLastError() after the launch.
+// Launch on `stream` with `scratch` (sgs_decode_geometry's bytes; unused
+// on the fast path); returns -1 for a shape the card cannot hold (nothing
+// launched), else cudaGetLastError() after the launch. The wide path's
+// path flag (*wide) says which kernel ran.
 int sgs_decode_launch(const void* dur, const void* dem, const void* prio,
                       const void* release, const void* pred, const void* caps,
                       void* start, void* finish, void* ok,
                       int rows, int J, int M, int T, int rows_per_group,
-                      void* stream) {
+                      void* scratch, void* stream, int* wide) {
+  *wide = 0;
   if (rows <= 0 || J <= 0) return 0;
   int W = 1;
-  long long smem = 0, limit = 0;
+  long long smem = 0, limit = 0, need = 0;
   const int rc = sgs_decode_geometry(rows, J, M, T, rows_per_group, &W,
-                                     &smem, &limit);
+                                     &smem, &limit, &need);
   if (rc != 0) return rc;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (W > 0) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          sgs_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    sgs_decode_kernel<<<rows / W, 32 * W, (size_t)smem, s>>>(
+        (const int32_t*)dur, (const float*)dem, (const float*)prio,
+        (const int32_t*)release, (const uint8_t*)pred, (const float*)caps,
+        (int32_t*)start, (int32_t*)finish, (uint8_t*)ok,
+        J, M, T, rows_per_group);
+    return (int)cudaGetLastError();
+  }
+  *wide = 1;
+  const int G = rows / rows_per_group;
+  uint32_t* succ = (uint32_t*)scratch;
+  int* npred0 = (int*)(succ + wide_succ_words(G, J));
+  unsigned char* state =
+      smem ? nullptr : (unsigned char*)scratch + wide_prep_bytes(G, J);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, wide_prep_bytes(G, J), s);
+  if (e != cudaSuccess) return (int)e;
+  sgs_decode_wide_prep<<<(unsigned)((size_t)G * J), kWideThreads, 0, s>>>(
+      (const uint8_t*)pred, J, succ, npred0);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sgs_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    e = cudaFuncSetAttribute(sgs_decode_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sgs_decode_kernel<<<rows / W, 32 * W, (size_t)smem,
-                      (cudaStream_t)stream>>>(
+  sgs_decode_wide_kernel<<<rows, kWideThreads, (size_t)smem, s>>>(
       (const int32_t*)dur, (const float*)dem, (const float*)prio,
-      (const int32_t*)release, (const uint8_t*)pred, (const float*)caps,
-      (int32_t*)start, (int32_t*)finish, (uint8_t*)ok,
+      (const int32_t*)release, succ, npred0, (const float*)caps,
+      (int32_t*)start, (int32_t*)finish, (uint8_t*)ok, state,
       J, M, T, rows_per_group);
   return (int)cudaGetLastError();
 }

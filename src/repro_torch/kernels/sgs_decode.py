@@ -3,9 +3,12 @@
 The kernel (``csrc/sgs_decode.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/sgs_decode.py:_kernel``; the source says what bounds it on
 the card and how the design answers that: one warp per chain row, W rows
-of one group per block, no block barrier in the step loop. The launch
-picks W itself (``geometry``) and refuses, with a ``ValueError``, a shape
-whose row state and precedence do not fit one block's shared memory.
+of one group per block, no block barrier in the step loop. A group whose
+precedence and row state do not fit one block's shared memory on that
+design, or with J > 2048, goes to the wide path, one block per row
+(``sgs_decode_wide_kernel``); the launch picks the path and W itself
+(``geometry``) and refuses, with a ``ValueError``, only a shape whose
+inputs, outputs and scratch exceed the card's memory.
 ``kernels/_build.py`` compiles it at first use and loads it; it is called
 through ``ctypes`` on PyTorch's current stream. Nothing here builds or
 imports anything CUDA-specific when the module is imported.
@@ -25,12 +28,13 @@ from repro_torch.kernels import _build
 def _bind(lib: ctypes.CDLL) -> None:
     lib.sgs_decode_launch.argtypes = ([ctypes.c_void_p] * 9
                                       + [ctypes.c_int] * 5
-                                      + [ctypes.c_void_p])
+                                      + [ctypes.c_void_p] * 2
+                                      + [ctypes.POINTER(ctypes.c_int)])
     lib.sgs_decode_launch.restype = ctypes.c_int
     lib.sgs_decode_geometry.argtypes = ([ctypes.c_int] * 5
                                         + [ctypes.POINTER(ctypes.c_int)]
                                         + [ctypes.POINTER(ctypes.c_longlong)]
-                                        * 2)
+                                        * 3)
     lib.sgs_decode_geometry.restype = ctypes.c_int
 
 
@@ -39,16 +43,20 @@ def _library() -> ctypes.CDLL:
 
 
 def geometry(rows: int, J: int, M: int, T: int, rows_per_group: int):
-    """(rows per block W, dynamic shared memory per block, the card's limit
-    per block, fits) of a launch of this shape on the current CUDA device."""
+    """(route, rows per block W, dynamic shared memory per block, the card's
+    limit per block, global scratch bytes) of a launch of this shape on the
+    current CUDA device. ``route`` is "fast" (W rows a block), "wide" (one
+    row a block, W = 0; shared memory 0 where the row state lives in the
+    scratch) or None where the card cannot hold the launch."""
     lib = _library()
-    warps, smem, limit = (ctypes.c_int(), ctypes.c_longlong(),
-                          ctypes.c_longlong())
+    warps, smem, limit, scratch = (ctypes.c_int(), ctypes.c_longlong(),
+                                   ctypes.c_longlong(), ctypes.c_longlong())
     rc = lib.sgs_decode_geometry(rows, J, M, T, rows_per_group, warps, smem,
-                                 limit)
+                                 limit, scratch)
     if rc > 0:
         _build.check_launch("sgs_decode", lib, rc)
-    return warps.value, smem.value, limit.value, rc == 0
+    route = None if rc else ("fast" if warps.value else "wide")
+    return route, warps.value, smem.value, limit.value, scratch.value
 
 
 def _check(name: str, x: torch.Tensor, dtypes, dim: int, device) -> None:
@@ -60,7 +68,8 @@ def sgs_decode(dur, dem, prio, release, pred, caps, *, T: int):
     prio (B, J) f32, release (G, J) int32, pred (G, J, J) bool or uint8,
     caps (M,) f32, all contiguous on one CUDA device; B divisible by G ->
     (start, finish (B, J) int32, ok (B, J) bool). Counts each launch in
-    ``sgs_decode.launches``."""
+    ``sgs_decode.launches``, and those of the wide path also in
+    ``sgs_decode.wide_launches``."""
     device = dur.device
     if device.type != "cuda":
         raise ValueError(f"sgs_decode kernel needs CUDA tensors, got {device}")
@@ -85,23 +94,29 @@ def sgs_decode(dur, dem, prio, release, pred, caps, *, T: int):
     finish = torch.empty((B, J), dtype=INT, device=device)
     ok = torch.empty((B, J), dtype=torch.bool, device=device)
     lib = _library()
+    wide = ctypes.c_int()
     with torch.cuda.device(device):
+        route, _, _, _, need = geometry(B, J, M, int(T), B // G)
+        if route is None:
+            raise ValueError(
+                f"sgs_decode: {B} rows of J {J}, M {M}, T {T} need more "
+                f"than the card's memory for their inputs, outputs and "
+                f"{need} bytes of scratch; nothing was launched")
+        scratch = (torch.empty(need, dtype=torch.uint8, device=device)
+                   if need else None)
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.sgs_decode_launch(
             dur.data_ptr(), dem.data_ptr(), prio.data_ptr(),
             release.data_ptr(), pred.data_ptr(), caps.data_ptr(),
             start.data_ptr(), finish.data_ptr(), ok.data_ptr(),
-            B, J, M, int(T), B // G, stream)
-        if rc == -1:
-            _, need, limit, _ = geometry(B, J, M, int(T), B // G)
-    if rc == -1:
-        raise ValueError(f"sgs_decode: J {J}, M {M}, T {T}: one row's state "
-                         f"and its group's precedence need {need} bytes of "
-                         f"shared memory, more than the {limit} a block of "
-                         f"this card has; nothing was launched")
+            B, J, M, int(T), B // G,
+            None if scratch is None else scratch.data_ptr(), stream, wide)
     _build.check_launch("sgs_decode", lib, rc)
     _build.count_launch(sgs_decode)
+    if wide.value:
+        _build.count_launch(sgs_decode, "wide_launches")
     return start, finish, ok
 
 
 sgs_decode.launches = 0
+sgs_decode.wide_launches = 0

@@ -1,0 +1,174 @@
+"""Core transformer layers (PyTorch port of ``repro/models/layers.py``):
+RMSNorm, RoPE, GQA/MQA/MHA attention (blockwise over query chunks) and the
+SwiGLU MLP.
+
+Plain functions on nested dicts of tensors, as the reference's are, with
+the reference's numerics: RMSNorm statistics and RoPE in float32, float32
+attention scores under the -1e30 causal mask, softmax in float32, its
+weights cast to ``v``'s dtype. ``scaled_dot_product_attention`` would
+change both the numbers and the mask, so attention is written out with
+``torch.einsum``, as the reference leaves it to XLA. Cross-attention and
+MLA wait for their slices (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.common import Initializer, ModelConfig
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(ini: Initializer, path: str, dim: int, stack=()):
+    return {"scale": ini.param(f"{path}/scale", (*stack, dim), init="ones")}
+
+
+def rmsnorm(p, x, eps: float, fast: bool = False):
+    """RMSNorm with float32 statistics. ``fast=True`` keeps the normalized
+    tensor in the input dtype (only the per-row statistic is float32)."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    if fast:
+        return x * r.to(x.dtype) * p["scale"].to(x.dtype)
+    out = x.float() * r
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                        # (d/2,)
+    ang = positions[..., :, None, None].float() * freqs   # (..., S, 1, d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Scaled dot-product attention (blockwise over query chunks)
+# ---------------------------------------------------------------------------
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset, scale: float):
+    """q: (B, Sq, H, D), k/v: (B, Sk, KH, D|Dv) with H % KH == 0.
+
+    Returns (B, Sq, H, Dv). Scores accumulate in float32: the products of
+    the inputs' values, exact in float32, summed in float32."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, Sq, KH, G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    scores = scores * scale
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        scores = scores.masked_fill(~mask[None, None, None], -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return out.reshape(B, Sq, KH * G, v.shape[-1])
+
+
+def attention_core(q, k, v, *, causal: bool, q_offset=0, chunk: int = 0,
+                   scale=None):
+    """Blockwise attention: queries in chunks of ``chunk``, so the
+    materialized score block is (B, H, chunk, Sk) instead of (B, H, Sq,
+    Sk)."""
+    B, Sq, H, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if not chunk or Sq <= chunk:
+        return _sdpa(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+    if Sq % chunk:
+        raise ValueError(f"{Sq} queries do not split into chunks of {chunk}")
+    return torch.cat([
+        _sdpa(q[:, i:i + chunk], k, v, causal=causal, q_offset=q_offset + i,
+              scale=scale) for i in range(0, Sq, chunk)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# GQA self-attention layer
+# ---------------------------------------------------------------------------
+
+
+def init_attention(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
+    d, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": ini.param(f"{path}/wq", (*stack, d, H, Dh)),
+        "wk": ini.param(f"{path}/wk", (*stack, d, KH, Dh)),
+        "wv": ini.param(f"{path}/wv", (*stack, d, KH, Dh)),
+        "wo": ini.param(f"{path}/wo", (*stack, H, Dh, d),
+                        scale=1.0 / math.sqrt(H * Dh)),
+    }
+
+
+def attention(p, x, cfg: ModelConfig, *, positions, cache=None,
+              cache_index=None):
+    """Self attention. If ``cache`` is given (dict with k, v of shape
+    (B, S_max, KH, Dh)), performs a decode step: writes k and v at
+    ``cache_index`` (in place, where the reference returns an updated copy)
+    and attends over the cache. Returns (out, cache)."""
+    dt = cfg.cdtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        out = attention_core(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    else:
+        ck, cv = cache["k"], cache["v"]
+        end = cache_index + k.shape[1]
+        if not 0 <= cache_index <= end <= ck.shape[1]:
+            raise ValueError(f"cache positions [{cache_index}, {end}) outside "
+                             f"a cache of {ck.shape[1]}")
+        ck[:, cache_index:end] = k.to(ck.dtype)
+        cv[:, cache_index:end] = v.to(cv.dtype)
+        # decode: positions past cache_index are masked by the causal offset
+        out = attention_core(q, ck.to(dt), cv.to(dt), causal=True,
+                             q_offset=cache_index, chunk=0)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(ini: Initializer, path: str, d: int, d_ff: int, stack=()):
+    return {
+        "w_gate": ini.param(f"{path}/w_gate", (*stack, d, d_ff)),
+        "w_up": ini.param(f"{path}/w_up", (*stack, d, d_ff)),
+        "w_down": ini.param(f"{path}/w_down", (*stack, d_ff, d),
+                            scale=1.0 / math.sqrt(d_ff)),
+    }
+
+
+def silu(x):
+    """``jax.nn.silu`` as the reference computes it: x * logistic(x), the
+    logistic expanded to 1 / (1 + exp(-x)) with every op rounded in x's
+    dtype (XLA's expansion; ``F.silu`` rounds once, 1 bfloat16 ulp apart
+    on about a third of the inputs)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def mlp(p, x, dt):
+    g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
+    u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
+    return torch.einsum("bsf,fd->bsd", silu(g) * u, p["w_down"].to(dt))

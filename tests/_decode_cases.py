@@ -78,6 +78,59 @@ def kernel_cases():
     return cases
 
 
+# grouped shapes (G, rows per group, J, M, T) past the fast path, decoded
+# by the wide path: the first J the fast path's shared memory refuses at
+# M 2, T 256 (1194), a shared pool of 128 tenants at Jmax 14 (1792), one
+# of 256 tenants at Jmax 16 (4096), two groups at an odd width, and a row
+# state too large for a block's shared memory (it lives in global scratch)
+WIDE_SHAPES = [(1, 8, 1194, 2, 256), (1, 4, 1792, 2, 256),
+               (1, 2, 4096, 2, 256), (2, 2, 1300, 3, 128),
+               (1, 2, 3000, 8, 2048)]
+
+
+def wide_instance(rng, G, rows, J, M, T):
+    """A grouped instance at a wide J, drawn in bulk: short tasks (some of
+    zero duration, some with zero demand, some masked at -1e9) on a sparse
+    random DAG of about 4 edges a task in each group."""
+    dur = rng.integers(0, max(T // 32, 2), (G * rows, J)).astype(np.int32)
+    dur[:, ::5] = 0
+    dem = rng.uniform(0, 1, (G * rows, J, M)).astype(np.float32)
+    dem[:, ::3, :] = 0.0
+    prio = rng.normal(size=(G * rows, J)).astype(np.float32)
+    prio[:, ::7] = -1e9
+    release = rng.integers(0, T, (G, J)).astype(np.int32)
+    pred = np.zeros((G, J, J), bool)
+    for g in range(G):
+        a, b = rng.integers(0, J, (2, 4 * J))
+        keep = a < b
+        pred[g, b[keep], a[keep]] = True      # edges point forward
+    caps = rng.uniform(2, 8, (M,)).astype(np.float32)
+    return [dur, dem, prio, release, pred, caps]
+
+
+WIDE_CASE_NAMES = ([f"G{g} rows{r} J{j} M{m} T{t}"
+                    for g, r, j, m, t in WIDE_SHAPES]
+                   + ["ties", "late", "masked"])
+
+
+def wide_cases():
+    """(args, T) instances the wide path is held to on the card, in the
+    order of ``WIDE_CASE_NAMES``: the ``WIDE_SHAPES``, and at J 1194 the
+    edge cases' traps: all-equal priorities (first index on ties), releases
+    past the horizon (the fallback placement) and fully masked padding
+    rows."""
+    rng = np.random.default_rng(11)
+    cases = [(wide_instance(rng, *s), s[4]) for s in WIDE_SHAPES]
+    J, M, T = 1194, 2, 256
+    base = wide_instance(rng, 1, 2, J, M, T)
+    ties = [base[0], base[1], np.zeros_like(base[2]), *base[3:]]
+    late = [*base[:3], np.full_like(base[3], T + 5), *base[4:]]
+    masked = [np.zeros_like(base[0]), np.zeros_like(base[1]),
+              np.full_like(base[2], -1e9), np.zeros_like(base[3]),
+              np.zeros_like(base[4]), base[5]]
+    return cases + [(ties, T), (late, T), (masked, T)]
+
+
 # tests/test_kernels.py's shapes: sched_violation (B, J, M, T), usl_runtime
 SCHED_SHAPES = [(1, 1, 1, 16), (4, 7, 4, 100), (8, 33, 2, 256),
                 (2, 130, 3, 300), (16, 5, 1, 64), (3, 128, 8, 128)]

@@ -14,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from _decode_cases import (MAIN_PATH_SHAPES, SCHED_ENVELOPE_SHAPES,
+from _decode_cases import (MAIN_PATH_SHAPES, WIDE_CASE_NAMES, SCHED_ENVELOPE_SHAPES,
                            SCHED_MAIN_SHAPES, SCHED_SHAPES, SCHED_WIDE_SHAPES,
                            USL_SHAPES, kernel_cases, sched_instance,
-                           usl_instance)
+                           usl_instance, wide_cases)
 from repro_torch.cluster.catalog import alibaba_cluster
+from repro_torch.configs import get_config
 from repro_torch.cluster.workloads import synth_trace
 from repro_torch.core import dag as tdag
 from repro_torch.core import ising
@@ -28,6 +29,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import sched_violation as sv_kernel
 from repro_torch.kernels import sgs_decode as kernel
 from repro_torch.kernels import usl_runtime as usl_kernel
+from repro_torch.launch.serve_model import serve
+from repro_torch.models.common import Initializer
+from repro_torch.models.transformer import Model, init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -58,17 +62,19 @@ def test_decode_geometry_gives_each_row_a_scheduler(card, G, rows, J, M,
     the group's rows, at most 4 while the rows are fewer than the card's
     schedulers (4 an SM)."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    W, smem, limit, fits = kernel.geometry(G * rows, J, M, T, rows)
+    route, W, smem, limit, scratch = kernel.geometry(G * rows, J, M, T, rows)
     want = max(w for w in (8, 4, 2, 1) if rows % w == 0)
     if G * rows < 4 * sms:
         want = min(want, 4)
-    assert fits and 0 < smem <= limit
+    assert route == "fast" and 0 < smem <= limit and scratch == 0
     assert W == want
 
 
 def test_kernel_refuses_shape_beyond_shared_memory(card):
-    """A group whose precedence and row state do not fit one block's shared
-    memory raises before any launch; nothing is truncated."""
+    """Past one block's shared memory the decode takes the wide path (a
+    group of J 2048 at M 2, T 256 launches and equals the plain version);
+    only a shape whose inputs, outputs and scratch exceed the card's memory
+    is refused, before any launch."""
     J, M, T = 2048, 2, 256
     args = [torch.zeros((1, J), dtype=torch.int32, device=card),
             torch.zeros((1, J, M), device=card),
@@ -76,11 +82,14 @@ def test_kernel_refuses_shape_beyond_shared_memory(card):
             torch.zeros((J,), dtype=torch.int32, device=card),
             torch.zeros((J, J), dtype=torch.bool, device=card),
             torch.ones((M,), device=card)]
-    n = kernel.sgs_decode.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.sgs_decode(*args, T=T)
-    assert kernel.sgs_decode.launches == n
-    assert not kernel.geometry(1, J, M, T, 1)[3]
+    n, w = kernel.sgs_decode.launches, kernel.sgs_decode.wide_launches
+    got = ops.sgs_decode(*args, T=T)
+    want = ops.sgs_decode(*args, T=T, use_kernel=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernel.sgs_decode.launches == n + 1
+    assert kernel.sgs_decode.wide_launches == w + 1
+    # a (J, J) precedence of 90 GB: more than an 80 GB card holds
+    assert kernel.geometry(1, 300_000, M, T, 1)[0] is None
 
 
 @pytest.mark.parametrize("shared", [False, True], ids=["isolated", "shared"])
@@ -227,21 +236,32 @@ def test_ising_serves_grid_2048_through_the_wide_path(card):
                              pc.caps) == []
 
 
-# the first J that sgs_decode refuses at M 2, T 256 (a shared pool's
-# decode), as the card's shared memory per block bounds it
-FIRST_REFUSED_J = 1194
+# the first J past the fast path's shared memory at M 2, T 256 (a shared
+# pool's decode) on an H100, as the card's shared memory per block bounds it
+FIRST_WIDE_J = 1194
 
 
-def test_sgs_decode_ceiling_is_pinned(card):
-    """At M 2, T 256 the decode takes J 1193 and refuses J 1194, whatever
-    the rows: a shared pool of 64 tenants at Jmax 14 (J 896) fits, one of
-    128 (J 1792) does not."""
-    M, T = 2, 256
-    for rows in (8, 256):
-        assert kernel.geometry(rows, FIRST_REFUSED_J - 1, M, T, rows)[3]
-        assert not kernel.geometry(rows, FIRST_REFUSED_J, M, T, rows)[3]
-    assert kernel.geometry(256, 64 * 14, M, T, 256)[3]
-    assert not kernel.geometry(256, 128 * 14, M, T, 256)[3]
+@pytest.mark.parametrize("case", range(len(WIDE_CASE_NAMES)),
+                         ids=WIDE_CASE_NAMES)
+def test_sgs_decode_wide_path_exactly(card, case):
+    """Shapes past the fast path's shared memory (J 1194, 1792 and 4096 at
+    M 2, T 256 among them) route to the wide path and equal the plain
+    version bit for bit; J 1193 still takes the fast path."""
+    args, T = wide_cases()[case]
+    dev = [torch.from_numpy(a).to(card) for a in args]
+    rows, J = args[0].shape
+    G, M = args[3].shape[0], args[5].shape[0]
+    assert kernel.geometry(rows, J, M, T, rows // G)[0] == "wide"
+    n, w = kernel.sgs_decode.launches, kernel.sgs_decode.wide_launches
+    got = ops.sgs_decode(*dev, T=T)
+    assert kernel.sgs_decode.launches == n + 1
+    assert kernel.sgs_decode.wide_launches == w + 1
+    want = ops.sgs_decode(*dev, T=T, use_kernel=False)
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert kernel.geometry(256, FIRST_WIDE_J - 1, 2, 256, 256)[0] == "fast"
+    assert kernel.geometry(256, FIRST_WIDE_J, 2, 256, 256)[0] == "wide"
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
@@ -406,3 +426,19 @@ def test_two_pools_warm_concurrently_on_the_card(card, tmp_path,
     for entry in svc.entries.values():
         entry.executor.shutdown()
     svc._widen_pool.shutdown()
+
+
+def test_model_path_runs_on_the_card_by_default(card):
+    """The model path's entry points default to the card: ``Model``,
+    ``init_params`` and ``Initializer`` draw there, the model holds its
+    matrices once in bfloat16 and its norms' scales in float32, and
+    ``serve`` serves there."""
+    cfg = get_config("smollm-360m", smoke=True)
+    model = Model(cfg)
+    assert model.embed.device.type == "cuda"
+    assert model.blocks[0]["mlp"]["w_up"].dtype == torch.bfloat16
+    assert model.blocks[0]["ln1"]["scale"].dtype == torch.float32
+    assert init_params(cfg)["embed"].device.type == "cuda"
+    assert Initializer(cfg).device.type == "cuda"
+    out = serve(batch=1, prompt_len=2, gen_tokens=2, quiet=True)
+    assert out["tokens"].shape == (1, 2)

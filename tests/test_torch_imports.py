@@ -28,7 +28,10 @@ def test_package_has_the_slice_modules():
                  "core.session", "core.agora", "cluster.workloads",
                  "obs.sink", "flow.chaos", "flow.executor", "flow.streaming",
                  "flow.daemon", "launch.serve_planner", "launch.obs_report",
-                 "launch.mesh", "core.predictor"):
+                 "launch.mesh", "core.predictor", "models.common",
+                 "models.layers", "models.transformer", "models.convert",
+                 "configs", "configs.smollm_360m", "launch.serve_model",
+                 "launch.serve"):
         assert "repro_torch." + name in mods
 
 
@@ -57,7 +60,8 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
     anything of ``repro``, at any depth of the file."""
     import ast
     for path in ("chip_smoke.py", os.path.join("tests", "_decode_cases.py"),
-                 os.path.join("tests", "_quality.py")):
+                 os.path.join("tests", "_quality.py"),
+                 os.path.join("tests", "_model_cases.py")):
         with open(os.path.join(ROOT, path)) as f:
             tree = ast.parse(f.read())
         names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)

@@ -1,0 +1,132 @@
+"""The port's model-serving driver (``repro_torch.launch.serve_model``)
+against the reference's (``repro.launch.serve_model``), on the CPU.
+
+For each dense SMOKE config both drivers serve the same batch from the
+reference's ``Model.init(seed=0)`` weights (carried across with
+``repro_torch.models.convert``): the prompts must be the same draw, and the
+greedy tokens the same. Where a row's tokens part, the reference's logit of
+its own pick and of the port's pick at that step must lie within the
+bfloat16 tolerance of ``tests/_model_cases.py`` (a near-tie that the two
+computations' rounding can flip); the test then compares up to that step
+and says so in a warning. Any other parting fails.
+"""
+import os
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import importlib
+import subprocess
+import sys
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.launch.serve_model import serve as ref_serve
+from repro_torch.launch.serve_model import serve
+
+from _model_cases import bf16_tolerance
+from _model_reference import (DENSE, port_params, ref_model, ref_params,
+                              ref_step)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B, PROMPT, GEN = 2, 8, 8
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """SMOKE widths: one intra-op thread runs them as fast as many, and
+    leaves the cores to the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def ref_replay(arch, prompt, toks):
+    """The reference's logits (B, GEN, V) at each generation step of its
+    serving loop, replayed on its own greedy tokens with the jitted step."""
+    _, model = ref_model(arch)
+    params = ref_params(arch)
+    cache, _ = model.init_cache(B, PROMPT + GEN)
+    step = ref_step(arch)
+    seq = np.concatenate([prompt, toks], axis=1).astype(np.int32)
+    out = []
+    for t in range(PROMPT + GEN - 1):
+        logits, cache = step(params, cache, {"tokens": jnp.asarray(
+            seq[:, t:t + 1])}, t)
+        if t >= PROMPT - 1:
+            out.append(np.asarray(logits[:, 0], np.float32))
+    return np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_greedy_tokens_match_reference(arch):
+    rcfg, _ = ref_model(arch)
+    want = ref_serve(arch, smoke=True, batch=B, prompt_len=PROMPT,
+                     gen_tokens=GEN, params=ref_params(arch),
+                     quiet=True)["tokens"]
+    got = serve(arch, smoke=True, batch=B, prompt_len=PROMPT, gen_tokens=GEN,
+                params=port_params(arch), quiet=True, device="cpu")
+    # the reference's own draw of its prompt, as its driver makes it
+    prompt = np.random.default_rng(0).integers(0, rcfg.vocab_size,
+                                               size=(B, PROMPT))
+    np.testing.assert_array_equal(got["prompt"], prompt)
+    assert got["tokens"].shape == want.shape == (B, GEN)
+    logits = ref_replay(arch, prompt, want)
+    # the replay on that prompt reproduces the reference's served tokens
+    np.testing.assert_array_equal(logits.argmax(-1), want)
+    parted = np.flatnonzero((got["tokens"] != want).any(axis=0))
+    if not parted.size:
+        return
+    k = int(parted[0])
+    tol = bf16_tolerance(rcfg.num_layers, logits[:, :k + 1])
+    for b in np.flatnonzero(got["tokens"][:, k] != want[:, k]):
+        gap = logits[b, k, want[b, k]] - logits[b, k, got["tokens"][b, k]]
+        assert gap <= tol, (
+            f"{arch}: row {b} parts at step {k}: the reference's logit of "
+            f"its token {want[b, k]} is {gap!r} above that of the port's "
+            f"{got['tokens'][b, k]}, beyond the bfloat16 tolerance {tol!r}")
+    warnings.warn(f"{arch}: greedy tokens equal for steps 0-{k - 1}; at step "
+                  f"{k} a near-tie within the bfloat16 tolerance {tol:.4g} "
+                  f"parts them, compared up to there")
+
+
+def test_sampling_is_seeded():
+    """At temperature > 0 the tokens come from a torch generator seeded with
+    ``seed``: the same seed samples the same tokens."""
+    a = serve("smollm-360m", batch=B, prompt_len=4, gen_tokens=6,
+              temperature=1.0, seed=3, quiet=True, device="cpu")
+    b = serve("smollm-360m", batch=B, prompt_len=4, gen_tokens=6,
+              temperature=1.0, seed=3, quiet=True, device="cpu")
+    np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    assert a["tokens"].min() >= 0 and a["tokens"].max() < 256
+
+
+def test_serve_runs_on_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        assert serve(batch=1, prompt_len=2, gen_tokens=2,
+                     quiet=True)["tokens"].shape == (1, 2)
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(batch=1, prompt_len=2, gen_tokens=2, quiet=True)
+
+
+def test_cli_serves_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_model", "--device",
+         "cpu", "--prompt-len", "4", "--tokens", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "smollm-360m: generated 4x4 tokens" in res.stdout
+
+
+def test_serve_shim_warns_and_reexports():
+    import repro_torch.launch.serve as shim
+    with pytest.warns(DeprecationWarning, match="serve_model"):
+        importlib.reload(shim)
+    assert shim.serve is serve
