@@ -67,12 +67,16 @@ Phases, each failing loudly (no phase's failure is caught):
    version; (c) the isolated and shared solves of phase 3's shapes
    unsharded and on (1, 1), (2, 1) and (1, 2) planner meshes over the one
    card: valid plans, ``sgs_decode`` launches per sharded solve, the
-   (1, 1) mesh's plans equal to the unsharded ones; (d) ``sgs_decode``'s
-   wide path, past the fast path's shared memory: J 1194, 1792 and 4096
-   at M 2, T 256 route to it and equal the plain version bit for bit
-   (ms per launch beside the bound), and a shared ``PlannerSession`` pool
-   of 128 tenants at Jmax 14 (J 1792) warms and serves valid plans
-   through it, every decode on the wide path;
+   (1, 1) mesh's plans equal to the unsharded ones; (d) ``sgs_decode``
+   past the fast path's shared memory: the latency floor of a step (one
+   warp running a step's irreducible chain back to back), then J 1193,
+   1194, 1792, 2048, 2049 and 4096 at M 2, T 256, each on the route
+   ``geometry`` picks ("fast" up to J 1193, "wide" up to J 2048,
+   "wide-block" past it) and on every other route that takes the shape,
+   all equal to the plain version bit for bit (ms per launch beside the
+   bound and the floor), and a shared ``PlannerSession`` pool of 128
+   tenants at Jmax 14 (J 1792) warms and serves valid plans, every decode
+   on the "wide" route (launches counted by route);
 7. plan quality against the reference (``tests/_quality.py``): the four
    cells of phases 3 and 4 on the card's production draws for the solver
    seeds of ``tests/torch_golden/quality_full.json`` (the reference's
@@ -96,9 +100,14 @@ against the plain version and timed: ``sched_violation`` as the ising
 loop passes them (a transposed ``dem`` view, read through its strides)
 and, on an earlier line, contiguous and in the kernel's general layout
 (K = 0) beside the bin-major one ``geometry`` picks; beside them the
-device time of an empty launch and of a launch with no tasks. The wide
-path is timed at B 512, J 10, M 4, T 2048, beside the bin-major path on
-the same tasks scaled to T 256, and on phase 6a's live inputs.
+device time of an empty launch and of a launch with no tasks. The pool's
+decode is timed on the device and as launched, beside the wide-block
+route on the same inputs, with the host work of a call (50 calls back to
+back, and the garbage collector's pauses among them) and each piece of
+host work a launch once repeated (``sgs_decode.probe_host``).
+``sched_violation``'s wide path is timed at B 512, J 10, M 4, T 2048,
+beside the bin-major path on the same tasks scaled to T 256, and on phase
+6a's live inputs.
 ``usl_runtime``, which no path calls, is timed on a grid of 4096 tasks x
 256 configurations of contiguous float32 inputs, so that the call runs
 no copy kernel; each timed call's PyTorch ops are recorded and the run
@@ -981,41 +990,69 @@ def meshes(dev, gpu, cfg, kernel):
 
 
 def wide_decode(dev, gpu, cfg, kernel, ops):
-    """Phase 6d: ``sgs_decode``'s wide path, past the fast path's shared
-    memory. At M 2, T 256: J 1194 (the first J the fast path refuses), 1792
-    (a shared pool of 128 tenants at Jmax 14) and 4096 (256 tenants at Jmax
-    16), 8 rows each, route to it and equal the plain version bit for bit,
-    timed beside their bounds; then a shared ``PlannerSession`` pool of 128
-    tenants at ``VecConfig()`` warms and serves valid plans through it.
-    Returns (the pool's wide launches, one captured decode of the pool)."""
+    """Phase 6d: ``sgs_decode`` past the fast path's shared memory. First
+    the latency floor of a step (``kernel.chain_cycles``). Then, at M 2, T
+    256, 8 rows each: J 1193 (the last J the fast route takes), 1194 (the
+    first it refuses), 1792 (a shared pool of 128 tenants at Jmax 14), 2048
+    (the last J the "wide" route's 64-bit lane mask holds), 2049 and 4096
+    (256 tenants at Jmax 16) route as ``_decode_cases.wide_route`` says,
+    and every route that takes the shape equals the plain version bit for
+    bit and is timed on the same inputs, beside the bound and the floor.
+    Then a shared ``PlannerSession`` pool of 128 tenants at ``VecConfig()``
+    warms and serves valid plans, every decode on the "wide" route.
+    Returns (the pool's launches by route, one captured decode of the pool,
+    the J 4096 case for the "wide-block" entry, cycles and GHz of a step's
+    chain)."""
     import numpy as np
     import torch
-    from _decode_cases import wide_instance
+    from _decode_cases import wide_instance, wide_route
 
     from repro_torch.cluster.catalog import alibaba_cluster
     from repro_torch.cluster.workloads import synth_trace
     from repro_torch.core.agora import Agora
 
+    chain, ghz = kernel.chain_cycles()
+    log(f"[sgs_decode chain] one step's irreducible chain (a redux, the "
+        f"chosen slot's dependent shared loads, a shuffle, one word of the "
+        f"window search), back to back on one warp: {chain:.1f} cycles at "
+        f"{ghz:.3f} GHz, {chain / ghz:.1f} ns a step ({gpu})")
     M, T, rows = 2, 256, 8
     rng = np.random.default_rng(5)
-    for J in (1194, 1792, 4096):
+    block_case = None
+    for J in (1193, 1194, 1792, 2048, 2049, 4096):
         args = [torch.from_numpy(a).to(dev) for a in
                 wide_instance(rng, 1, rows, J, M, T)]
-        route, _, smem, limit, scratch = kernel.geometry(rows, J, M, T, rows)
-        if route != "wide":
+        route = kernel.geometry(rows, J, M, T, rows)[0]
+        if route != ("fast" if J < 1194 else wide_route(J)):
             fail(f"[sgs_decode wide] J {J}: routed to {route}")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want = ops.sgs_decode(*args, T=T, use_kernel=False)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        parts = []
+        for other in kernel.ROUTES:
+            taken, warps, smem, _, scratch = kernel.geometry(rows, J, M, T,
+                                                             rows, other)
+            if taken is None:
+                continue
+            same_outputs(kernel.sgs_decode(*args, T=T, route=other), want)
+            ms = kernel_ms(lambda: kernel.sgs_decode(*args, T=T,
+                                                     route=other), 5)
+            parts.append(
+                f"{other}{' (taken)' if other == route else ''} {ms:.4f} "
+                f"ms/launch, {ms * 1e3 / J:.3f} us per step (W {warps}, "
+                f"{smem} B shared memory a block, {scratch} B scratch)")
         out = ops.sgs_decode(*args, T=T, use_kernel=True)
-        same_outputs(out, ops.sgs_decode(*args, T=T, use_kernel=False))
-        ms = kernel_ms(lambda: kernel.sgs_decode(*args, T=T), 5)
-        plain_ms = time_ms(lambda: ops.sgs_decode(*args, T=T,
-                                                  use_kernel=False), reps=1)
+        same_outputs(out, want)
         bound_ms, bound_by, nbytes, nops = bound(args, out, T)
-        log(f"[sgs_decode wide] rows {rows} J {J} M {M} T {T}: route "
-            f"{route}, {smem} B shared memory a block (limit {limit}), "
-            f"{scratch} B scratch; kernel == plain version; kernel {ms:.4f} "
-            f"ms/launch on the device ({ms * 1e3 / J:.3f} us per step), "
-            f"plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
-            f"{nbytes} B, {nops} ops) ({gpu})")
+        log(f"[sgs_decode wide] rows {rows} J {J} M {M} T {T}: "
+            f"{'; '.join(parts)}; every route == plain version (plain "
+            f"{plain_ms:.1f} ms); bound {bound_ms:.5f} ms ({bound_by}; "
+            f"{nbytes} B, {nops} ops), latency floor "
+            f"{J * chain / ghz * 1e-6:.4f} ms ({J} chains) ({gpu})")
+        if J == 4096:
+            block_case = (args, T, out, plain_ms)
 
     cluster = alibaba_cluster(machines=20)
     dags = synth_trace(128, cluster, seed=3)
@@ -1025,7 +1062,9 @@ def wide_decode(dev, gpu, cfg, kernel, ops):
     sess = Agora(cluster, solver="vectorized", vec_cfg=cfg,
                  device=dev).session(shared_capacity=True, bucket_p=128)
     torch.cuda.synchronize()
-    kernel.sgs_decode.launches = kernel.sgs_decode.wide_launches = 0
+    counters = ("launches", "wide_launches", "wide_block_launches")
+    for name in counters:
+        setattr(kernel.sgs_decode, name, 0)
     t0 = time.monotonic()
     sess.warmup(template)
     warm_s = time.monotonic() - t0
@@ -1034,24 +1073,58 @@ def wide_decode(dev, gpu, cfg, kernel, ops):
         res = sess.plan(dags)
     torch.cuda.synchronize()
     plan_s = time.monotonic() - t0
-    launches, wide = (kernel.sgs_decode.launches,
-                      kernel.sgs_decode.wide_launches)
+    launches, wide, block = (getattr(kernel.sgs_decode, n) for n in counters)
     errs = [e for r in res for e in r.validate()]
     joint = [e for r in res for e in r.plan.joint_errors]
     if len(res) != len(dags) or errs or joint:
         fail(f"[pool 128] {len(res)} plans for {len(dags)}, invalid "
              f"{errs[:3]}, joint violations {joint[:3]}")
     need = 2 * (cfg.iters + 2)          # warmup and one batch
-    if wide < need or wide != launches:
-        fail(f"[pool 128] sgs_decode launched {launches} times, {wide} on "
-             f"the wide path (expected {need}, all wide)")
+    if wide < need or wide != launches or block:
+        fail(f"[pool 128] sgs_decode launched {launches} times, {wide} past "
+             f"the fast route, {block} on the wide-block route (expected "
+             f"{need}, all on the wide route)")
     rows, J = cap.args[0].shape
     log(f"[pool 128] a shared session of 128 tenants (Jmax "
         f"{template.num_tasks}, bucket 128: decode rows {rows}, J {J}) on "
         f"alibaba_cluster(machines=20): warmup {warm_s:.3f} s, a batch of "
         f"128 in {plan_s:.3f} s, every plan valid, no joint violation; "
-        f"sgs_decode launches {launches}, {wide} on the wide path ({gpu})")
-    return wide, (cap.args, cap.T)
+        f"sgs_decode launches by route: fast {launches - wide}, wide "
+        f"{wide - block}, wide-block {block} ({gpu})")
+    by_route = {"fast": launches - wide, "wide": wide - block,
+                "wide-block": block}
+    return by_route, (cap.args, cap.T), block_case, (chain, ghz)
+
+
+def host_gap(fn, reps: int):
+    """Host milliseconds of each of ``reps`` back-to-back calls of ``fn``
+    (nothing synchronises between them) and the garbage collector's pauses
+    among them: (median, max, [pause ms])."""
+    import gc
+    import statistics
+
+    import torch
+    pauses, started = [], []
+
+    def watch(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            pauses.append((time.perf_counter() - started.pop()) * 1e3)
+
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    gc.callbacks.append(watch)
+    try:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        gc.callbacks.remove(watch)
+    torch.cuda.synchronize()
+    return statistics.median(host), max(host), pauses
 
 
 def serve_models(dev, gpu):
@@ -1288,10 +1361,11 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {entry[:60]}: {regs} registers, spill "
                     f"stores {st} B, loads {ld} B")
             if name == "sgs_decode":
-                # the fast path, the wide path and its prep
-                if len(entries) != 3:
+                # the fast, wide and wide-block routes' kernels, the
+                # prep, the step chain
+                if len(entries) != 5:
                     fail(f"ptxas reports {len(entries)} sgs_decode kernels, "
-                         f"expected 3")
+                         f"expected 5")
                 spilled = [e for e, _, st, ld in entries if st or ld]
                 if spilled:
                     fail(f"ptxas spills in sgs_decode {spilled}")
@@ -1545,7 +1619,8 @@ def main(argv=None) -> int:
     wide_launches, wide_args = wide_grid(dev, gpu, icfg)
     b1_wrappers(dev, kernel)
     meshes(dev, gpu, cfg, kernel)
-    pool_wide, pool_decode = wide_decode(dev, gpu, cfg, kernel, ops)
+    pool_routes, pool_decode, block_case, (chain, ghz) = wide_decode(
+        dev, gpu, cfg, kernel, ops)
 
     # kernel numbers at the paths' shapes ------------------------------------
     entries = []
@@ -1572,6 +1647,11 @@ def main(argv=None) -> int:
         reps = 50 if name == "isolated" else 10
         call_ms = time_ms(lambda: kernel.sgs_decode(*k_args, T=T), reps)
         ms = kernel_ms(lambda: kernel.sgs_decode(*k_args, T=T), reps)
+        # the wide route on the same inputs, for the choice of route; these
+        # launches are not on the path
+        same_outputs(kernel.sgs_decode(*k_args, T=T, route="wide"), out_p)
+        wide_ms = kernel_ms(lambda: kernel.sgs_decode(*k_args, T=T,
+                                                      route="wide"), reps)
         plain_ms = time_ms(lambda: ops.sgs_decode(*args, T=T,
                                                   use_kernel=False), reps=3)
         bound_ms, bound_by, nbytes, nops = bound(args, out_k, T)
@@ -1581,34 +1661,73 @@ def main(argv=None) -> int:
         log(f"[{name}] decode rows {rows} J {J} M {M} T {T}: kernel "
             f"{ms:.4f} ms/launch on the device, {ms * 1e3 / J:.3f} us per "
             f"step ({call_ms:.4f} ms per call as launched; {warps} rows per "
-            f"block, {smem} B shared memory per block), plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
-            f"{nbytes} B, {nops} ops)")
+            f"block, {smem} B shared memory per block); the wide route on "
+            f"the same inputs {wide_ms:.4f} ms; plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}; {nbytes} B, {nops} ops), "
+            f"latency floor {J * chain / ghz * 1e-6:.5f} ms")
         entry(f"sgs_decode[{name}]", results[name]["launches"], err, ms,
               plain_ms, bound_ms, bound_by)
 
-    # the wide path, on a decode of phase 6d's 128-tenant pool
+    # the wide route, on a decode of phase 6d's 128-tenant pool
     args, T = pool_decode
     k_args = [args[0].contiguous(), args[1].contiguous(), args[2].contiguous(),
               *[x.contiguous() for x in ops._ref.as_groups(args[3], args[4])],
               args[5].contiguous()]
     out_k = ops.sgs_decode(*args, T=T, use_kernel=True)
     err = same_outputs(out_k, ops.sgs_decode(*args, T=T, use_kernel=False))
-    call_ms = time_ms(lambda: kernel.sgs_decode(*k_args, T=T), 5)
-    ms = kernel_ms(lambda: kernel.sgs_decode(*k_args, T=T), 5)
+    rows, J = args[0].shape
+    M, G = args[5].shape[0], k_args[3].shape[0]
+    route, warps, smem, _, scratch = kernel.geometry(rows, J, M, T, rows // G)
+
+    def pool_call():
+        kernel.sgs_decode(*k_args, T=T)
+
+    call_ms = time_ms(pool_call, 20)
+    ms = kernel_ms(pool_call, 20)
+    block_ms = kernel_ms(lambda: kernel.sgs_decode(*k_args, T=T,
+                                                   route="wide-block"), 5)
+    host_med, host_max, pauses = host_gap(pool_call, 50)
     plain_ms = time_ms(lambda: ops.sgs_decode(*args, T=T, use_kernel=False),
                        reps=1)
     bound_ms, bound_by, nbytes, nops = bound(args, out_k, T)
+    floor_ms = J * chain / ghz * 1e-6
+    log(f"[pool 128] decode rows {rows} J {J} M {M} T {T}: route {route} "
+        f"(W {warps}, {smem} B shared memory a block, {scratch} B scratch): "
+        f"kernel {ms:.4f} ms/launch on the device, {ms * 1e3 / J:.3f} us per "
+        f"step ({call_ms:.4f} ms per call as launched, 20 calls); the "
+        f"wide-block route on the same inputs {block_ms:.4f} ms; plain "
+        f"{plain_ms:.1f} ms; bound {bound_ms:.5f} ms ({bound_by}; {nbytes} "
+        f"B, {nops} ops), latency floor {floor_ms:.4f} ms ({J} chains of "
+        f"{chain:.1f} cycles at {ghz:.3f} GHz) ({gpu})")
+    pieces = kernel.probe_host(k_args[4], rows, T, M)
+    torch.cuda._sleep(1 << 26)
+    busy = kernel.probe_host(k_args[4], rows, T, M, reps=20)
+    torch.cuda.synchronize()
+    log(f"[pool 128] host work of a call: median {host_med:.4f} ms, max "
+        f"{host_max:.4f} ms over 50 calls back to back (the device takes "
+        f"{ms:.4f}); garbage collector pauses among them: "
+        f"{len(pauses)}, {sum(pauses):.3f} ms in all. Microseconds a call of "
+        f"each piece of host work a launch repeated before the card's facts "
+        f"were read once per device (device idle / behind a busy device): "
+        + ", ".join(f"{k} {v:.2f}/{busy[k]:.2f}" for k, v in pieces.items()))
+    entry("sgs_decode[wide]", pool_routes["wide"], err, ms, plain_ms,
+          bound_ms, bound_by)
+
+    # the wide-block route: J 4096, 8 rows (phase 6d); no path here reaches
+    # it, so its launches on the paths are the pool's on that route (0)
+    args, T, out_k, plain_ms = block_case
+    err = same_outputs(out_k, ops.sgs_decode(*args, T=T, use_kernel=False))
+    ms = kernel_ms(lambda: kernel.sgs_decode(*args, T=T), 5)
+    bound_ms, bound_by, nbytes, nops = bound(args, out_k, T)
     rows, J = args[0].shape
-    route, _, smem, _, scratch = kernel.geometry(rows, J, args[5].shape[0], T,
-                                                 rows // k_args[3].shape[0])
-    log(f"[pool 128] decode rows {rows} J {J} T {T}: route {route} ({smem} "
-        f"B shared memory a block, {scratch} B scratch): kernel {ms:.4f} "
-        f"ms/launch on the device, {ms * 1e3 / J:.3f} us per step ({call_ms:.4f} "
-        f"ms per call as launched), plain {plain_ms:.1f} ms, bound "
-        f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {nops} ops)")
-    entry("sgs_decode[wide]", pool_wide, err, ms, plain_ms, bound_ms,
-          bound_by)
+    log(f"[sgs_decode wide-block] rows {rows} J {J} M {args[5].shape[0]} T "
+        f"{T}: kernel {ms:.4f} ms/launch on the device, "
+        f"{ms * 1e3 / J:.3f} us per step, plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}), latency floor "
+        f"{J * chain / ghz * 1e-6:.4f} ms; launches on the paths "
+        f"{pool_routes['wide-block']} ({gpu})")
+    entry("sgs_decode[wide-block]", pool_routes["wide-block"], err, ms,
+          plain_ms, bound_ms, bound_by)
 
     empty_ms = kernel_ms(lambda: torch.cuda._sleep(0), 200)
     log(f"[launch floor] an empty kernel (torch.cuda._sleep(0)), back to "

@@ -69,40 +69,43 @@
 // re-placed slot counts its successors down again, so such inputs lie
 // outside the contract.
 //
-// The wide path. A group whose precedence and one row's state do not fit
-// a block's shared memory on that design (J past about 1190 at M 2, T
-// 256), or whose slots do not fit a lane's 64-bit eligibility mask (J >
-// 2048), goes to a second kernel, sgs_decode_wide_kernel;
-// sgs_decode_geometry picks the path from the shape and the card. Same
-// algorithm, same exactness, one block of kWideThreads threads per chain
-// row:
-//   * a prep kernel turns each group's (J, J) precedence into a successor
-//     bitmask succ[g][p] (ceil(J/32) words) and a predecessor count per
-//     slot, once per launch, in global scratch that the wrapper allocates;
-//     a step reads one row of it (J/8 bytes), L2-resident (401 KB a group
-//     at J 1792);
-//   * the row's (M, T) usage and its slot state sit in the block's shared
-//     memory where they fit, else in that scratch (generic pointers, one
-//     code path);
-//   * thread i owns the slot words w with w % kWideThreads == i: their
-//     eligibility bits, counts and ready bins, so releasing the successors
-//     of a placed slot needs no atomics, and it keeps the least rank of its
-//     eligible slots. Ranks are unique, so the step's argmax (first index
-//     on ties) is a block min over those, and a rank -> slot table names
-//     the slot;
-//   * warp 0 runs the fast path's window search (steps 3-5) on the usage
-//     while the other warps wait at the block's barrier.
-// Two block barriers a step: latency-bound like the fast path, with a
-// block reduction in place of one warp redux.
+// The wide routes. Past the shared memory of a block on that design (the
+// group's successor bitmask is J * ceil(J/32) words: J past about 1190 at M
+// 2, T 256), sgs_decode_geometry picks one of two routes; both start with a
+// prep kernel that turns each group's (J, J) precedence into that bitmask,
+// succ[g][p] (bit s: p precedes s), and a predecessor count per slot, once
+// per launch, in global scratch that the wrapper allocates (L2-resident:
+// 401 KB a group at J 1792).
+//   * wide (J <= 2048, the fast route's 64-bit lane mask):
+//     sgs_decode_wide_kernel, one warp a row, up to kWideRows rows of a
+//     group a block (each row on a scheduler of its own, as many as 227 KB
+//     of shared memory holds), no block barrier in the step loop. Its step
+//     is the fast route's reshaped for a long row (the kernel's comment
+//     says how): eligibility a bitset over ranks that any lane updates, the
+//     successors released by the lanes that hold their words, the
+//     successor row fetched during the window search, the search's loads
+//     overlapped, ranks from a sort. It is a kernel of its own: the two
+//     routes compiled from one templated step loop cost the fast route 2.7%
+//     at the isolated shape, where 8 warps share a scheduler and the
+//     instruction stream is the bound (PERF.md).
+//   * wide-block (J > 2048, or a row's state past a block's shared memory):
+//     sgs_decode_wide_block_kernel, one block of kWideThreads threads a
+//     row, the row's state in shared memory where it fits, else in the
+//     scratch. Thread i owns the slot words w with w % kWideThreads == i;
+//     the argmax is a block min over unique ranks, warp 0 runs the window
+//     search while the other warps wait at the block's barrier: two
+//     barriers a step.
+// The host reads the card's facts (SMs, shared memory, the block kernel's
+// attributes, its memory) and opts a kernel into its shared memory once per
+// device, not per launch.
 //
-// ptxas (sm_90a, -O3 --fmad=false -Xptxas -v, CUDA 12.8): 64 registers
-// (the cap of __launch_bounds__(256, 4)), no spills, no static shared
-// memory; the dynamic shared memory of a block is block_bytes + W *
+// ptxas (sm_90a, -O3 --fmad=false -Xptxas -v, CUDA 12.8): the fast route
+// 64 registers (the cap of __launch_bounds__(256, 4)), no spills, no static
+// shared memory; the dynamic shared memory of a block is block_bytes + W *
 // warp_bytes below: 20,400 bytes at the isolated shape (W = 8) and 45,840
-// at the shared shape (W = 4). The wide kernel: 88 registers (under the
-// cap of __launch_bounds__(128, 4)), no spills, 48 bytes of static shared
-// memory; a row's state is 75,760 bytes at J 1792, M 2, T 256, and a
-// step takes about 1.3 us on an H100 (PERF.md).
+// at the shared shape (W = 4). The wide-block kernel: 88 registers (under
+// the cap of __launch_bounds__(128, 4)), no spills, 48 bytes of static
+// shared memory. PERF.md has the wide kernel's registers and the times.
 //
 // Exactness traps (each one breaks bit-for-bit parity):
 //   * caps + 1e-6 is float32 arithmetic in the reference. A bare 1e-6 is a
@@ -121,6 +124,10 @@
 #include <stdint.h>
 #include <limits.h>
 
+#include <atomic>
+#include <chrono>
+#include <mutex>
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -130,6 +137,8 @@ constexpr uint32_t kNegInfKey = 0x007fffffu;  // order_key(-inf)
 constexpr uint32_t kNone = 0xffffffffu;       // no eligible slot
 constexpr int kMaxSlotWords = 64;             // slots a lane: bits of elig
 constexpr int kBatch = 4;                     // 16-byte loads in flight
+constexpr int kWideRows = 4;                  // rows a block, wide route
+constexpr int kScanWords = 4;                 // words a search round, wide
 
 // float -> unsigned with the same order; -0 and +0 get one key
 __device__ __forceinline__ uint32_t order_key(float v) {
@@ -456,7 +465,7 @@ sgs_decode_kernel(const int32_t* __restrict__ dur,      // (rows, J)
   }
 }
 
-// --- the wide path ---------------------------------------------------------
+// --- the wide routes: the successor bitmask in global scratch ------------
 
 constexpr int kWideThreads = 128;
 constexpr int kWideWarps = kWideThreads / 32;
@@ -517,6 +526,351 @@ sgs_decode_wide_prep(const uint8_t* __restrict__ pred, int J,
   if ((threadIdx.x & 31) == 0 && n) atomicAdd(&npred0[gs], n);
 }
 
+// --- the wide route: one warp a row past the fast route's shared memory ----
+
+// the group's arrays in a block's shared memory on the wide route: rel[J]
+// (i32) | caps_eps[M] (f32); succ and npred0 live in the prep's scratch
+__host__ __device__ __forceinline__ size_t wide_block_bytes(int J, int M) {
+  return align16(4 * ((size_t)J + (size_t)M));
+}
+
+// a row's arrays on the wide route: rdy, start, npred, dur[J] (i32; first
+// the buffer of the rank sort, 8 bytes a slot rounded up to a power of two,
+// < 16 J) | usage[M * T] | dem[J * M] (f32) | rank[J] (a slot's rank),
+// sor[J] (the slot of a rank), elig[ceil(J/32)] (bit r: the slot of rank r
+// is eligible) (u32) | st[J] (u8: bit 0 ok, bit 1 placed)
+__host__ __device__ __forceinline__ size_t wide_warp_bytes(int J, int M,
+                                                           int T) {
+  const size_t NW = ((size_t)J + 31) / 32;
+  return align16(4 * (6 * (size_t)J + NW + (size_t)M * T + (size_t)J * M)
+                 + (size_t)J);
+}
+
+// sort the warp's n (a power of two) keys in shared memory, ascending:
+// bitonic, each stage's pairs spread over the lanes. The pairs of a stage
+// are disjoint, so a lane loads kSortPairs of them before it stores any
+// (a store between two loads would make each load a round trip)
+constexpr int kSortPairs = 8;
+__device__ __forceinline__ void warp_sort(uint64_t* a, int n, int lane) {
+  const int half = n >> 1;
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int jj = k >> 1; jj > 0; jj >>= 1) {
+      for (int i0 = lane; i0 < half; i0 += 32 * kSortPairs) {
+        uint64_t x[kSortPairs], y[kSortPairs];
+#pragma unroll
+        for (int u = 0; u < kSortPairs; ++u) {
+          const int i = i0 + 32 * u;
+          const int lo = 2 * i - (i & (jj - 1));
+          if (i < half) {
+            x[u] = a[lo];
+            y[u] = a[lo + jj];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSortPairs; ++u) {
+          const int i = i0 + 32 * u;
+          const int lo = 2 * i - (i & (jj - 1));
+          if (i < half) {
+            const uint64_t mn = x[u] < y[u] ? x[u] : y[u];
+            const uint64_t mx = x[u] < y[u] ? y[u] : x[u];
+            const bool up = (lo & k) == 0;
+            a[lo] = up ? mn : mx;
+            a[lo + jj] = up ? mx : mn;
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The wide route (J <= 2048): the fast route's algorithm and exactness, one
+// warp a row and no block barrier in the step loop, W (at most kWideRows)
+// rows of a group a block, the last block of a group holding fewer where W
+// does not divide rows_per_group. The group's successor bitmask and
+// predecessor counts come from sgs_decode_wide_prep's scratch in global
+// memory (L2-resident), and the step is reshaped for a long row:
+//   * eligibility is a bitset over ranks in the row's shared memory, not a
+//     lane's register: lane l reads words l and l + 32, and the argmax is
+//     one redux of their least set ranks, then a rank -> slot load;
+//   * a placement's successors are released by the lanes that hold their
+//     words of succ[j], all at once: each slot is touched by one lane a
+//     step, and its eligible bit flips by a shared atomic. A __syncwarp at
+//     the top of a step publishes what the lanes wrote, so the chosen
+//     slot's ready bin is a plain load (no shuffle from an owner lane);
+//   * the successor row of the chosen slot is fetched into registers as
+//     soon as the slot is known and consumed after the window search;
+//   * the window search loads kScanWords words of bins, then ballots them,
+//     with no branch around a load, so the words' latencies overlap;
+//   * every shared load of a slot's state is issued before its stores (the
+//     compiler cannot tell the arrays apart, so a store in between makes
+//     each load a round trip of its own);
+//   * the ranks come from a bitonic sort of the row's keys, not from a
+//     pairwise count (J^2 / 32 compares a lane).
+__global__ void __launch_bounds__(32 * kWideRows, 4)
+sgs_decode_wide_kernel(const int32_t* __restrict__ dur,      // (rows, J)
+                       const float* __restrict__ dem,        // (rows, J, M)
+                       const float* __restrict__ prio,       // (rows, J)
+                       const int32_t* __restrict__ release,  // (G, J)
+                       const uint32_t* __restrict__ succ_g,  // (G, J, NW)
+                       const int* __restrict__ npred0_g,     // (G, J)
+                       const float* __restrict__ caps,       // (M,)
+                       int32_t* __restrict__ start,          // (rows, J)
+                       int32_t* __restrict__ finish,         // (rows, J)
+                       uint8_t* __restrict__ ok,             // (rows, J)
+                       int J, int M, int T, int rows_per_group) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int NW = (J + 31) >> 5;     // words of slots (<= 64)
+  const int K = (T + 31) >> 5;
+  const int nthreads = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int W = nthreads >> 5;
+  const unsigned per_group = (unsigned)(rows_per_group + W - 1) / W;
+  const size_t g = blockIdx.x / per_group;
+  const int in_group = (int)(blockIdx.x - g * per_group) * W + (tid >> 5);
+  const bool live = in_group < rows_per_group;   // a row of this group
+  const size_t row = g * rows_per_group + in_group;
+
+  int* rel = reinterpret_cast<int*>(smem);
+  float* caps_eps = reinterpret_cast<float*>(rel + J);
+  const uint32_t* succ = succ_g + g * (size_t)J * NW;
+  const int* npred0 = npred0_g + g * (size_t)J;
+  unsigned char* mine = smem + wide_block_bytes(J, M)
+                      + (size_t)(tid >> 5) * wide_warp_bytes(J, M, T);
+  int* rdy = reinterpret_cast<int*>(mine);
+  int* start_s = rdy + J;
+  int* npred = start_s + J;
+  int* dur_s = npred + J;
+  float* usage = reinterpret_cast<float*>(dur_s + J);
+  float* dem_s = usage + (size_t)M * T;
+  uint32_t* rank = reinterpret_cast<uint32_t*>(dem_s + (size_t)J * M);
+  int* sor = reinterpret_cast<int*>(rank + J);
+  uint32_t* elig = reinterpret_cast<uint32_t*>(sor + J);
+  uint8_t* st = reinterpret_cast<uint8_t*>(elig + NW);
+  const int32_t* dur_r = dur + row * J;
+  const float* dem_r = dem + row * J * M;
+  const float* prio_r = prio + row * J;
+
+  // --- staging: the group's arrays (block), the row's arrays (warp) -------
+#pragma unroll 4
+  for (int s = tid; s < J; s += nthreads) rel[s] = release[g * J + s];
+  for (int m = tid; m < M; m += nthreads)
+    caps_eps[m] = __fadd_rn(caps[m], 1e-6f);
+  if (live) {
+#pragma unroll 8
+    for (int i = lane; i < J * M; i += 32) dem_s[i] = dem_r[i];
+#pragma unroll 4
+    for (int s = lane; s < J; s += 32) st[s] = 0;
+    for (int i = lane; i < M * T; i += 32) usage[i] = 0.0f;
+  }
+  __syncthreads();
+  if (!live) return;    // no block barrier below
+  // each slot's rank in the order (priority descending, index ascending):
+  // sort (~key, slot) ascending in the buffer over rdy..dur, so position i
+  // holds the slot of rank i; the slots scored -inf rank last, from n_fin
+  int fin = 0;               // slots whose priority is above -inf
+  uint64_t* keys = reinterpret_cast<uint64_t*>(rdy);
+  int n = 1;
+  while (n < J) n <<= 1;
+#pragma unroll 8
+  for (int s = lane; s < J; s += 32) {
+    const uint32_t k = order_key(prio_r[s]);
+    fin += k > kNegInfKey;
+    keys[s] = ((uint64_t)~k << 32) | (uint32_t)s;
+  }
+  for (int i = J + lane; i < n; i += 32) keys[i] = ~0ull;   // sort last
+  __syncwarp();
+  warp_sort(keys, n, lane);
+#pragma unroll 4
+  for (int i = lane; i < J; i += 32) {
+    const int s = (int)(uint32_t)keys[i];
+    rank[s] = (uint32_t)i;
+    sor[i] = s;
+  }
+  __syncwarp();              // every lane is done with the buffer
+#pragma unroll 8
+  for (int s = lane; s < J; s += 32) {
+    dur_s[s] = dur_r[s];
+    rdy[s] = 0;
+    start_s[s] = 0;
+    npred[s] = npred0[s];
+  }
+  __syncwarp();
+  for (int w = lane; w < NW; w += 32) {
+    uint32_t bits = 0u;
+    for (int b = 0; b < 32 && 32 * w + b < J; ++b)
+      bits |= (npred[sor[32 * w + b]] == 0 ? 1u : 0u) << b;
+    elig[w] = bits;
+  }
+  const int n_fin = __reduce_add_sync(kFull, fin);
+  float ce[kRegM];          // caps + 1e-6 of the resources in registers
+#pragma unroll
+  for (int m = 0; m < kRegM; ++m) ce[m] = m < M ? caps_eps[m] : 0.0f;
+
+  // --- the J placement steps of this warp's row: no block barrier ---------
+  for (int step = 0; step < J; ++step) {
+    // 1. argmax over eligible scores, first index on ties: the least set
+    //    rank of the eligible bitset
+    __syncwarp();            // every lane's writes of the last step
+    const uint32_t w0 = lane < NW ? elig[lane] : 0u;
+    const uint32_t w1 = lane + 32 < NW ? elig[lane + 32] : 0u;
+    const uint32_t top = __reduce_min_sync(
+        kFull, w0 ? 32 * lane + __ffs(w0) - 1
+                  : (w1 ? 32 * (lane + 32) + __ffs(w1) - 1 : kNone));
+    int j = top == kNone ? 0 : sor[top];
+    uint32_t rank_j = top;
+    if (top == kNone || (int)top >= n_fin) {
+      // the best score is -inf: the reference's argmax then takes the
+      // first slot scored -inf, eligible or not
+      int lowest = INT_MAX;
+      for (int s = lane; s < J && lowest == INT_MAX; s += 32)
+        if (npred[s] != 0 || (st[s] & 2) || (int)rank[s] >= n_fin)
+          lowest = s;
+      j = __reduce_min_sync(kFull, lowest);
+      rank_j = rank[j];
+    }
+    if (lane == 0)             // j leaves the eligible set
+      atomicAnd(&elig[rank_j >> 5], ~(1u << (rank_j & 31)));
+    // the successor row of j, words lane and lane + 32, fetched now and
+    // consumed after the window search
+    const uint32_t* sj = succ + (size_t)j * NW;
+    const uint32_t sw0 = lane < NW ? __ldg(sj + lane) : 0u;
+    const uint32_t sw1 = lane + 32 < NW ? __ldg(sj + 32 + lane) : 0u;
+
+    // 2. the chosen slot's duration, demand and ready bin
+    const int d = dur_s[j];
+    const int ready = max(rel[j], rdy[j]);
+    float r[kRegM];
+#pragma unroll
+    for (int m = 0; m < kRegM; ++m)
+      r[m] = m < M ? dem_s[(size_t)j * M + m] : 0.0f;
+
+    // 3-4. the earliest t >= t0 = max(ready, 0) whose window [t, t + d)
+    //      lies in the grid and holds no overloaded bin, as on the fast
+    //      route, kScanWords words of 32 bins a round: their loads first
+    //      (at a bin clamped into the grid), then their ballots. Lane l
+    //      tests the window that ENDS at bin e = 32k + l, clean when the
+    //      last overloaded bin at or below e lies before its start.
+    const int t0 = max(ready, 0);
+    int first = INT_MAX;
+    if (d == 0) {
+      if (t0 < T) first = t0;
+    } else if (t0 + d <= T) {
+      int last_flag = -1;      // last overloaded bin in [t0, 32k)
+      for (int k = t0 >> 5; k < K; k += kScanWords) {
+        float u[kScanWords][kRegM];
+#pragma unroll
+        for (int c = 0; c < kScanWords; ++c) {
+          const int e = min(((k + c) << 5) + lane, T - 1);
+#pragma unroll
+          for (int m = 0; m < kRegM; ++m)
+            u[c][m] = m < M ? usage[(size_t)m * T + e] : 0.0f;
+        }
+        uint32_t word[kScanWords];
+#pragma unroll
+        for (int c = 0; c < kScanWords; ++c) {
+          const int e = ((k + c) << 5) + lane;
+          bool flag = false;
+#pragma unroll
+          for (int m = 0; m < kRegM; ++m)
+            flag |= r[m] > 0.0f && __fadd_rn(u[c][m], r[m]) > ce[m];
+          if (M > kRegM && e < T)
+            for (int m = kRegM; m < M; ++m) {
+              const float rm = dem_s[(size_t)j * M + m];
+              if (rm > 0.0f
+                  && __fadd_rn(usage[(size_t)m * T + e], rm) > caps_eps[m])
+                flag = true;
+            }
+          word[c] = __ballot_sync(kFull, flag && e >= t0 && e < T);
+        }
+        uint32_t clean = 0u;
+        int at = 0;              // the word holding the first clean window
+#pragma unroll
+        for (int c = 0; c < kScanWords; ++c) {
+          const int e = ((k + c) << 5) + lane;
+          const uint32_t upto = word[c] & (kFull >> (31 - lane));  // <= l
+          const int last =
+              upto ? ((k + c) << 5) + 31 - __clz(upto) : last_flag;
+          const int t = e - d + 1;
+          const uint32_t cl =
+              __ballot_sync(kFull, t >= t0 && e < T && last < t);
+          if (cl && !clean) {
+            clean = cl;
+            at = k + c;
+          }
+          if (word[c]) last_flag = ((k + c) << 5) + 31 - __clz(word[c]);
+        }
+        if (clean) {
+          first = (at << 5) + __ffs(clean) - 1 - d + 1;
+          break;
+        }
+      }
+    }
+
+    // 5. the placement, or the fallback
+    const bool any_ok = first != INT_MAX;
+    const int tstar = any_ok ? first : max(ready, T - d);
+    const int fin_j = tstar + d;
+
+    // 6. demand into the usage window, clipped to the grid (own bins), the
+    //    loads before the stores
+    const int lo = max(tstar, 0);
+    const int hi = min(fin_j, T);
+    for (int k = lo >> 5; (k << 5) < hi; ++k) {
+      const int t = (k << 5) + lane;
+      if (t >= lo && t < hi) {
+        float v[kRegM];
+#pragma unroll
+        for (int m = 0; m < kRegM; ++m)
+          if (m < M) v[m] = usage[(size_t)m * T + t];
+#pragma unroll
+        for (int m = 0; m < kRegM; ++m)
+          if (m < M) usage[(size_t)m * T + t] = __fadd_rn(v[m], r[m]);
+        for (int m = kRegM; m < M; ++m) {
+          float* p = usage + (size_t)m * T + t;
+          *p = __fadd_rn(*p, dem_s[(size_t)j * M + m]);
+        }
+      }
+    }
+    if (lane == 0) {
+      start_s[j] = tstar;
+      st[j] = any_ok ? 3 : 2;
+    }
+    // release the successors and push this finish into their ready bins:
+    // lane l releases the slots of words l and l + 32 itself, one lane a
+    // slot, the loads before the stores; a slot's eligible bit flips when
+    // its count reaches 0 (or leaves it, in cyclic inputs)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int w = lane + 32 * h;
+      for (uint32_t bits = h ? sw1 : sw0; bits; bits &= bits - 1) {
+        const int s = 32 * w + __ffs(bits) - 1;
+        const int c = npred[s];
+        const int rd = rdy[s];
+        const bool placed = st[s] & 2;
+        const uint32_t rs = rank[s];
+        npred[s] = c - 1;
+        rdy[s] = max(rd, fin_j);
+        if (!placed && (c == 1 || c == 0))
+          atomicXor(&elig[rs >> 5], 1u << (rs & 31));
+      }
+    }
+  }
+  __syncwarp();
+
+  // --- write the row out, coalesced ----------------------------------------
+  for (int s = lane; s < J; s += 32) {
+    const size_t o = row * J + s;
+    const int f = st[s];
+    start[o] = start_s[s];
+    finish[o] = (f & 2) ? start_s[s] + dur_s[s] : 0;
+    ok[o] = (uint8_t)(f & 1);
+  }
+}
+
+// --- the wide-block route: one block a row ---------------------------------
+
 // the least v over the block, to every thread. red holds a word a warp;
 // a caller reusing red passes a barrier first
 __device__ __forceinline__ uint32_t block_min(uint32_t v, uint32_t* red) {
@@ -533,18 +887,19 @@ __device__ __forceinline__ uint32_t block_min(uint32_t v, uint32_t* red) {
 // so up to 128 registers a thread: without the block count ptxas keeps
 // 64-72 and spills 8-12 bytes (the row's output base, a loop bound)
 __global__ void __launch_bounds__(kWideThreads, 4)
-sgs_decode_wide_kernel(const int32_t* __restrict__ dur,      // (rows, J)
-                       const float* __restrict__ dem,        // (rows, J, M)
-                       const float* __restrict__ prio,       // (rows, J)
-                       const int32_t* __restrict__ release,  // (G, J)
-                       const uint32_t* __restrict__ succ,    // (G, J, NW)
-                       const int* __restrict__ npred0,       // (G, J)
-                       const float* __restrict__ caps,       // (M,)
-                       int32_t* __restrict__ start,          // (rows, J)
-                       int32_t* __restrict__ finish,         // (rows, J)
-                       uint8_t* __restrict__ ok,             // (rows, J)
-                       unsigned char* state_global,  // null: shared memory
-                       int J, int M, int T, int rows_per_group) {
+sgs_decode_wide_block_kernel(
+    const int32_t* __restrict__ dur,      // (rows, J)
+    const float* __restrict__ dem,        // (rows, J, M)
+    const float* __restrict__ prio,       // (rows, J)
+    const int32_t* __restrict__ release,  // (G, J)
+    const uint32_t* __restrict__ succ,    // (G, J, NW)
+    const int* __restrict__ npred0,       // (G, J)
+    const float* __restrict__ caps,       // (M,)
+    int32_t* __restrict__ start,          // (rows, J)
+    int32_t* __restrict__ finish,         // (rows, J)
+    uint8_t* __restrict__ ok,             // (rows, J)
+    unsigned char* state_global,          // null: shared memory
+    int J, int M, int T, int rows_per_group) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint32_t red[2][kWideWarps];  // alternate: one barrier a use
   __shared__ int sel[2];                   // the step's t* and ok
@@ -743,116 +1098,299 @@ sgs_decode_wide_kernel(const int32_t* __restrict__ dur,      // (rows, J)
   }
 }
 
+// The latency floor of a step: its irreducible chain, run `iters` times
+// back to back by one warp. A redux picks the least rank; the chosen slot's
+// dependent shared loads (the rank -> slot table, then the slot's ready
+// bin); one shuffle; one word of the window search (a shared load, an add,
+// a compare, a ballot), whose result feeds the next redux. Writes the
+// cycles (clock64) and nanoseconds (%globaltimer) of the loop.
+__global__ void __launch_bounds__(32)
+sgs_decode_chain(int iters, long long* __restrict__ out) {
+  __shared__ int sor_s[32], rdy_s[32];
+  __shared__ float usage_s[32];
+  const int lane = threadIdx.x;
+  sor_s[lane] = (lane * 7) & 31;
+  rdy_s[lane] = (lane * 11) & 31;
+  usage_s[lane] = (float)lane;
+  __syncwarp();
+  uint32_t best = (uint32_t)lane;
+  unsigned long long ns0, ns1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));
+  const long long c0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t top = __reduce_min_sync(kFull, best);
+    const int j = sor_s[top & 31];
+    const int ready = __shfl_sync(kFull, rdy_s[j], j);
+    const float u = __fadd_rn(usage_s[(ready + lane) & 31], 1.0f);
+    const uint32_t word = __ballot_sync(kFull, u > 16.0f);
+    best = (uint32_t)lane ^ (word & 1u);
+  }
+  const long long c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));
+  if (lane == 0) {
+    out[0] = c1 - c0;
+    out[1] = (long long)(ns1 - ns0);
+    out[2] = (long long)best;
+  }
+}
+
+// What a device's launches need and never changes: read once per device.
+struct DeviceInfo {
+  std::atomic<int> ready;
+  int sms, optin;                // SMs; shared memory a block may opt into
+  size_t block_static;           // static shared memory of the block kernel
+  size_t total;                  // device memory
+  long long applied[3];          // dynamic shared memory opted into, a route
+};
+constexpr int kMaxDevices = 64;
+DeviceInfo g_device[kMaxDevices];
+std::mutex g_device_mu;
+
+enum Route { kFast = 0, kWideWarp = 1, kWideBlock = 2 };
+
+cudaError_t device_info(DeviceInfo** out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceInfo& d = g_device[dev];
+  if (!d.ready.load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> lock(g_device_mu);
+    if (!d.ready.load(std::memory_order_relaxed)) {
+      cudaFuncAttributes attr;
+      size_t free_b = 0;
+      e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&d.optin,
+                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                   dev);
+      if (e == cudaSuccess)
+        e = cudaFuncGetAttributes(&attr, sgs_decode_wide_block_kernel);
+      if (e == cudaSuccess) e = cudaMemGetInfo(&free_b, &d.total);
+      if (e != cudaSuccess) return e;
+      d.block_static = attr.sharedSizeBytes;
+      d.applied[0] = d.applied[1] = d.applied[2] = 48 * 1024;
+      d.ready.store(1, std::memory_order_release);
+    }
+  }
+  *out = &d;
+  return cudaSuccess;
+}
+
+// opt the route's kernel into `smem` bytes of dynamic shared memory, once
+// per device and size
+template <typename F>
+cudaError_t opt_in(DeviceInfo* d, int route, F kernel, long long smem) {
+  std::lock_guard<std::mutex> lock(g_device_mu);
+  if (smem <= d->applied[route]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) d->applied[route] = smem;
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The launch geometry of this shape on the current device. The fast path:
-// returns 0 with *warps = W rows a block and *smem its dynamic shared
-// memory. The wide path (one row's state and its group's precedence past
-// a block's shared memory on the fast path, or J > 2048): returns 0 with
-// *warps = 0, one row a block, *smem the row's state in shared memory, or
-// 0 where it does not fit and lives in the scratch. *scratch is the global
-// scratch the launch needs (0 on the fast path), *limit the card's shared
-// memory per block. Returns -1 when the inputs, outputs and scratch
-// together exceed the card's memory, else a CUDA error code.
+// The launch geometry of this shape on the current device, by route:
+//   0 fast: *warps = W rows a block, *smem its dynamic shared memory;
+//   1 wide, past the fast route's shared memory with J <= 2048: W rows a
+//     block, the group's successor bitmask in the global scratch;
+//   2 wide-block, J > 2048 or a row's state past a block's shared memory:
+//     one row a block (*warps = 0), *smem the row's state in shared memory,
+//     or 0 where it lives in the scratch.
+// `want` < 0 picks the first route that takes the shape, else asks for that
+// route (-2 where it does not take the shape). *scratch is the global
+// scratch the launch needs, *limit the card's shared memory per block.
+// Returns -1 when the inputs, outputs and scratch together exceed the
+// card's memory, else a CUDA error code. Reads the card once per device.
 int sgs_decode_geometry(int rows, int J, int M, int T, int rows_per_group,
-                        int* warps, long long* smem, long long* limit,
-                        long long* scratch) {
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+                        int want, int* route, int* warps, long long* smem,
+                        long long* limit, long long* scratch) {
+  DeviceInfo* dev = nullptr;
+  const cudaError_t e = device_info(&dev);
   if (e != cudaSuccess) return (int)e;
-  *limit = optin;
+  const size_t optin = (size_t)dev->optin;
+  *limit = dev->optin;
   *scratch = 0;
-  const size_t fixed = block_bytes(J, M), per = warp_bytes(J, M, T);
-  int W = kMaxWarps;
-  while (W > 1 && rows_per_group % W) W >>= 1;
-  if (rows < 4 * sms && W > 4) W = 4;     // a scheduler for every row
-  while (W > 1 && fixed + W * per > (size_t)optin) W >>= 1;
   // a lane's eligible slots are one 64-bit mask: J <= 2048
-  if (fixed + W * per <= (size_t)optin && (J + 31) / 32 <= kMaxSlotWords) {
-    *warps = W;
-    *smem = (long long)(fixed + W * per);
-    return 0;
+  const bool in_mask = (J + 31) / 32 <= kMaxSlotWords;
+  if (want < 0 || want == kFast) {
+    const size_t fixed = block_bytes(J, M);
+    const size_t per = warp_bytes(J, M, T);
+    int W = kMaxWarps;
+    while (W > 1 && rows_per_group % W) W >>= 1;
+    if (rows < 4 * dev->sms && W > 4) W = 4;  // a scheduler for every row
+    while (W > 1 && fixed + W * per > optin) W >>= 1;
+    if (fixed + W * per <= optin && in_mask) {
+      *route = kFast;
+      *warps = W;
+      *smem = (long long)(fixed + W * per);
+      return 0;
+    }
+    if (want == kFast) return -2;
   }
-  cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, sgs_decode_wide_kernel);
-  if (e != cudaSuccess) return (int)e;
   const int G = rows_per_group > 0 ? rows / rows_per_group : 0;
-  const WideState L(J, M, T);
-  const bool in_shared = L.bytes + attr.sharedSizeBytes <= (size_t)optin;
-  *warps = 0;
-  *smem = in_shared ? (long long)L.bytes : 0;
-  *scratch = (long long)(wide_prep_bytes(G, J)
-                         + (in_shared ? 0 : (size_t)rows * L.bytes));
-  size_t free_b = 0, total_b = 0;
-  e = cudaMemGetInfo(&free_b, &total_b);
-  if (e != cudaSuccess) return (int)e;
   const size_t io = (size_t)rows * J * (4 + 4 * (size_t)M + 4 + 9)
                   + (size_t)G * J * (4 + (size_t)J) + 4 * (size_t)M;
-  return io + (size_t)*scratch > total_b ? -1 : 0;
+  *scratch = (long long)wide_prep_bytes(G, J);
+  const size_t fixed = wide_block_bytes(J, M);
+  const size_t per = wide_warp_bytes(J, M, T);
+  if ((want < 0 || want == kWideWarp) && in_mask && fixed + per <= optin) {
+    // the most rows a block, each on a scheduler of its own (4 an SM)
+    int W = rows_per_group < kWideRows ? rows_per_group : kWideRows;
+    while (W > 1 && fixed + W * per > optin) --W;
+    *route = kWideWarp;
+    *warps = W;
+    *smem = (long long)(fixed + W * per);
+  } else if (want < 0 || want == kWideBlock) {
+    const WideState L(J, M, T);
+    const bool in_shared = L.bytes + dev->block_static <= optin;
+    *route = kWideBlock;
+    *warps = 0;
+    *smem = in_shared ? (long long)L.bytes : 0;
+    if (!in_shared) *scratch += (long long)((size_t)rows * L.bytes);
+  } else {
+    return -2;
+  }
+  return io + (size_t)*scratch > dev->total ? -1 : 0;
 }
 
-// Launch on `stream` with `scratch` (sgs_decode_geometry's bytes; unused
-// on the fast path); returns -1 for a shape the card cannot hold (nothing
-// launched), else cudaGetLastError() after the launch. The wide path's
-// path flag (*wide) says which kernel ran.
+// Launch on `stream` the route that sgs_decode_geometry gave for this shape
+// (route, warps, smem), with `scratch` of its bytes (unused on the fast
+// route). Returns cudaGetLastError() after the launch. The wide routes zero
+// and rebuild the successor bitmask on every launch.
 int sgs_decode_launch(const void* dur, const void* dem, const void* prio,
                       const void* release, const void* pred, const void* caps,
                       void* start, void* finish, void* ok,
                       int rows, int J, int M, int T, int rows_per_group,
-                      void* scratch, void* stream, int* wide) {
-  *wide = 0;
+                      int route, int warps, long long smem, void* scratch,
+                      void* stream) {
   if (rows <= 0 || J <= 0) return 0;
-  int W = 1;
-  long long smem = 0, limit = 0, need = 0;
-  const int rc = sgs_decode_geometry(rows, J, M, T, rows_per_group, &W,
-                                     &smem, &limit, &need);
-  if (rc != 0) return rc;
+  DeviceInfo* dev = nullptr;
+  cudaError_t e = device_info(&dev);
+  if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (W > 0) {
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          sgs_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    sgs_decode_kernel<<<rows / W, 32 * W, (size_t)smem, s>>>(
+  const int G = rows / rows_per_group;
+  if (route == kFast) {
+    e = opt_in(dev, kFast, sgs_decode_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    sgs_decode_kernel<<<rows / warps, 32 * warps, (size_t)smem, s>>>(
         (const int32_t*)dur, (const float*)dem, (const float*)prio,
         (const int32_t*)release, (const uint8_t*)pred, (const float*)caps,
         (int32_t*)start, (int32_t*)finish, (uint8_t*)ok,
         J, M, T, rows_per_group);
     return (int)cudaGetLastError();
   }
-  *wide = 1;
-  const int G = rows / rows_per_group;
   uint32_t* succ = (uint32_t*)scratch;
   int* npred0 = (int*)(succ + wide_succ_words(G, J));
-  unsigned char* state =
-      smem ? nullptr : (unsigned char*)scratch + wide_prep_bytes(G, J);
-  cudaError_t e = cudaMemsetAsync(scratch, 0, wide_prep_bytes(G, J), s);
+  e = cudaMemsetAsync(scratch, 0, wide_prep_bytes(G, J), s);
   if (e != cudaSuccess) return (int)e;
   sgs_decode_wide_prep<<<(unsigned)((size_t)G * J), kWideThreads, 0, s>>>(
       (const uint8_t*)pred, J, succ, npred0);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(sgs_decode_wide_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  if (route == kWideWarp) {
+    e = opt_in(dev, kWideWarp, sgs_decode_wide_kernel, smem);
     if (e != cudaSuccess) return (int)e;
+    const unsigned blocks =
+        (unsigned)G * (unsigned)((rows_per_group + warps - 1) / warps);
+    sgs_decode_wide_kernel<<<blocks, 32 * warps, (size_t)smem, s>>>(
+        (const int32_t*)dur, (const float*)dem, (const float*)prio,
+        (const int32_t*)release, succ, npred0, (const float*)caps,
+        (int32_t*)start, (int32_t*)finish, (uint8_t*)ok,
+        J, M, T, rows_per_group);
+    return (int)cudaGetLastError();
   }
-  sgs_decode_wide_kernel<<<rows, kWideThreads, (size_t)smem, s>>>(
+  unsigned char* state =
+      smem ? nullptr : (unsigned char*)scratch + wide_prep_bytes(G, J);
+  e = opt_in(dev, kWideBlock, sgs_decode_wide_block_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  sgs_decode_wide_block_kernel<<<rows, kWideThreads, (size_t)smem, s>>>(
       (const int32_t*)dur, (const float*)dem, (const float*)prio,
       (const int32_t*)release, succ, npred0, (const float*)caps,
       (int32_t*)start, (int32_t*)finish, (uint8_t*)ok, state,
       J, M, T, rows_per_group);
   return (int)cudaGetLastError();
+}
+
+// Host microseconds a call of each piece of a wide launch's host work takes,
+// averaged over `reps` calls, into us[0..8]: cudaGetDevice, the SM count and
+// the opt-in shared memory (cudaDeviceGetAttribute), cudaFuncGetAttributes,
+// cudaMemGetInfo, cudaFuncSetAttribute (to the wide route's `smem`), the
+// scratch's cudaMemsetAsync and the prep kernel's launch on `stream`, and
+// sgs_decode_geometry as a launch now reads it. For measurement only.
+int sgs_decode_probe_host(int rows, int J, int M, int T, int rows_per_group,
+                          long long smem, const void* pred, void* scratch,
+                          void* stream, int reps, double* us) {
+  using clock = std::chrono::steady_clock;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int G = rows / rows_per_group;
+  uint32_t* succ = (uint32_t*)scratch;
+  int* npred0 = (int*)(succ + wide_succ_words(G, J));
+  int dev = 0, v = 0, rt = 0, w = 0;
+  long long sm = 0, lim = 0, scr = 0;
+  size_t free_b = 0, total_b = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaSuccess;
+  for (int piece = 0; piece < 9 && e == cudaSuccess; ++piece) {
+    const auto t0 = clock::now();
+    for (int i = 0; i < reps && e == cudaSuccess; ++i) {
+      switch (piece) {
+        case 0: e = cudaGetDevice(&dev); break;
+        case 1:
+          e = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+          break;
+        case 2:
+          e = cudaDeviceGetAttribute(
+              &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+          break;
+        case 3: e = cudaFuncGetAttributes(&attr, sgs_decode_wide_block_kernel); break;
+        case 4: e = cudaMemGetInfo(&free_b, &total_b); break;
+        case 5:
+          e = cudaFuncSetAttribute(sgs_decode_wide_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+          break;
+        case 6:
+          e = cudaMemsetAsync(scratch, 0, wide_prep_bytes(G, J), s);
+          break;
+        case 7:
+          sgs_decode_wide_prep<<<(unsigned)((size_t)G * J), kWideThreads, 0,
+                                 s>>>((const uint8_t*)pred, J, succ, npred0);
+          e = cudaGetLastError();
+          break;
+        default: {
+          const int rc = sgs_decode_geometry(rows, J, M, T, rows_per_group,
+                                             -1, &rt, &w, &sm, &lim, &scr);
+          if (rc > 0) e = (cudaError_t)rc;
+        }
+      }
+    }
+    us[piece] = std::chrono::duration<double, std::micro>(clock::now() - t0)
+                    .count() / reps;
+  }
+  return (int)e;
+}
+
+// Cycles of one irreducible step chain and the SM clock (cycles per ns) it
+// ran at, over `iters` chains on the current device (sgs_decode_chain).
+// Synchronises the device. For the latency floor of a decode.
+int sgs_decode_chain_cycles(int iters, double* cycles, double* ghz) {
+  long long* out = nullptr;
+  long long host[3] = {0, 0, 0};
+  cudaError_t e = cudaMalloc(&out, sizeof(host));
+  if (e != cudaSuccess) return (int)e;
+  sgs_decode_chain<<<1, 32>>>(iters, out);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaMemcpy(host, out, sizeof(host),
+                                       cudaMemcpyDeviceToHost);
+  cudaFree(out);
+  if (e != cudaSuccess) return (int)e;
+  *cycles = (double)host[0] / iters;
+  *ghz = host[1] > 0 ? (double)host[0] / (double)host[1] : 0.0;
+  return 0;
 }
 
 const char* sgs_decode_error_string(int code) {

@@ -79,13 +79,22 @@ def kernel_cases():
 
 
 # grouped shapes (G, rows per group, J, M, T) past the fast path, decoded
-# by the wide path: the first J the fast path's shared memory refuses at
-# M 2, T 256 (1194), a shared pool of 128 tenants at Jmax 14 (1792), one
-# of 256 tenants at Jmax 16 (4096), two groups at an odd width, and a row
-# state too large for a block's shared memory (it lives in global scratch)
+# by the wide routes: the first J the fast path's shared memory refuses at
+# M 2, T 256 (1194), a shared pool of 128 tenants at Jmax 14 (1792), the
+# last J a lane's 64-bit mask holds (2048, the "wide" route) and the first
+# past it (2049, "wide-block"), one of 256 tenants at Jmax 16 (4096), two
+# groups at an odd width, and a row state too large for a block's shared
+# memory (it lives in global scratch)
 WIDE_SHAPES = [(1, 8, 1194, 2, 256), (1, 4, 1792, 2, 256),
+               (1, 2, 2048, 2, 256), (1, 2, 2049, 2, 256),
                (1, 2, 4096, 2, 256), (2, 2, 1300, 3, 128),
                (1, 2, 3000, 8, 2048)]
+
+
+def wide_route(J):
+    """The route ``sgs_decode`` takes for a ``WIDE_SHAPES`` shape: a lane's
+    64-bit eligibility mask holds J <= 2048 slots."""
+    return "wide" if J <= 2048 else "wide-block"
 
 
 def wide_instance(rng, G, rows, J, M, T):

@@ -16,8 +16,9 @@ import torch
 
 from _decode_cases import (MAIN_PATH_SHAPES, WIDE_CASE_NAMES, SCHED_ENVELOPE_SHAPES,
                            SCHED_MAIN_SHAPES, SCHED_SHAPES, SCHED_WIDE_SHAPES,
-                           USL_SHAPES, kernel_cases, sched_instance,
-                           usl_instance, wide_cases)
+                           USL_SHAPES, WIDE_SHAPES, kernel_cases,
+                           sched_instance, usl_instance, wide_cases,
+                           wide_route)
 from repro_torch.cluster.catalog import alibaba_cluster
 from repro_torch.configs import get_config
 from repro_torch.cluster.workloads import synth_trace
@@ -244,19 +245,30 @@ FIRST_WIDE_J = 1194
 @pytest.mark.parametrize("case", range(len(WIDE_CASE_NAMES)),
                          ids=WIDE_CASE_NAMES)
 def test_sgs_decode_wide_path_exactly(card, case):
-    """Shapes past the fast path's shared memory (J 1194, 1792 and 4096 at
-    M 2, T 256 among them) route to the wide path and equal the plain
-    version bit for bit; J 1193 still takes the fast path."""
+    """Shapes past the fast path's shared memory (J 1194, 1792, 2048, 2049
+    and 4096 at M 2, T 256 among them) route to the wide routes ("wide" up
+    to J 2048, "wide-block" past it or past a block's shared memory) and
+    equal the plain version bit for bit, and so does every other route that
+    takes the shape; J 1193 still takes the fast path."""
     args, T = wide_cases()[case]
     dev = [torch.from_numpy(a).to(card) for a in args]
     rows, J = args[0].shape
     G, M = args[3].shape[0], args[5].shape[0]
-    assert kernel.geometry(rows, J, M, T, rows // G)[0] == "wide"
-    n, w = kernel.sgs_decode.launches, kernel.sgs_decode.wide_launches
+    route = wide_route(J) if case < len(WIDE_SHAPES) else "wide"
+    assert kernel.geometry(rows, J, M, T, rows // G)[0] == route
+    n, w, b = (kernel.sgs_decode.launches, kernel.sgs_decode.wide_launches,
+               kernel.sgs_decode.wide_block_launches)
     got = ops.sgs_decode(*dev, T=T)
     assert kernel.sgs_decode.launches == n + 1
     assert kernel.sgs_decode.wide_launches == w + 1
+    assert kernel.sgs_decode.wide_block_launches == b + (route == "wide-block")
     want = ops.sgs_decode(*dev, T=T, use_kernel=False)
+    for other in ("wide", "wide-block"):
+        if other != route and kernel.geometry(rows, J, M, T, rows // G,
+                                              other)[0] == other:
+            forced = kernel.sgs_decode(*dev, T=T, route=other)
+            for x, y in zip(want, forced):
+                assert torch.equal(x, y), other
     torch.cuda.synchronize()
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)

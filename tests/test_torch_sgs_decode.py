@@ -18,7 +18,8 @@ try:
 except ImportError:              # hermetic env: deterministic shim
     from _hypothesis_fallback import given, settings, strategies as st
 
-from _decode_cases import SHAPES, edge_cases, grouped_instance, random_instance
+from _decode_cases import (SHAPES, edge_cases, grouped_instance,
+                           random_instance, wide_instance)
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -67,6 +68,16 @@ def test_grouped_ref_matches_per_group_jax(G, rows, J, M, T):
         for a, b in zip(want, got):
             np.testing.assert_array_equal(
                 np.asarray(a), b[g * rows:(g + 1) * rows].numpy())
+
+
+def test_ref_matches_jax_exactly_at_the_first_wide_shape():
+    """J 1194 at M 2, T 256 (two rows, one group): the first shape the
+    kernel's fast route refuses for shared memory, which the card decodes
+    on the "wide" route. The plain version equals the JAX reference there
+    too, so the card's wide route is held to the reference end to end."""
+    dur, dem, prio, release, pred, caps = wide_instance(
+        np.random.default_rng(5), 1, 2, 1194, 2, 256)
+    _assert_exact([dur, dem, prio, release[0], pred[0], caps], 256)
 
 
 def test_ops_dispatch_on_cpu():
