@@ -83,17 +83,24 @@ Phases, each failing loudly (no phase's failure is caught):
    energies from CPU JAX): every plan valid, and each cell's mean energy
    over the seeds at most the reference's mean plus two standard errors
    of its seed spread;
-8. the dense model family (``repro_torch.launch.serve_model.serve``) at
-   full width, weights drawn from seed 0 and held in bfloat16:
-   ``smollm-360m`` (32 layers, d_model 960), ``yi-6b`` (32 layers,
-   d_model 4096) and ``granite-20b`` (52 layers, d_model 6144) each serve
-   a batch of 4 (prompt 16, 32 greedy tokens); decode ms per step, tokens
-   per second, peak memory, the matrix products' share of a profiled
-   step and the step's least time are printed; ``smollm-360m``'s
+8. the dense and MoE model families
+   (``repro_torch.launch.serve_model.serve``) at full width, weights drawn
+   from seed 0 and held in bfloat16: ``smollm-360m`` (32 layers, d_model
+   960), ``yi-6b`` (32 layers, d_model 4096), ``granite-20b`` (52 layers,
+   d_model 6144), ``olmoe-1b-7b`` (16 MoE layers, 64 experts, top 8) and
+   ``deepseek-v2-lite-16b`` (MLA, one dense prefix block and 26 MoE
+   layers, 64 experts, top 6, a merged shared expert) each serve a batch
+   of 4 (prompt 16, 32 greedy tokens); decode ms per step, tokens per
+   second, peak memory, the matrix products' share of a profiled step and
+   the step's least time (for MoE, from the experts its routing reads,
+   beside all experts' bytes) are printed; ``smollm-360m``'s
    teacher-forced logits on the card must agree with the port's CPU run
    of the same weights within the bfloat16 tolerance of
-   ``tests/_model_cases.py``, and in float32 within its float32 rule.
-   No kernel of the port runs on this path.
+   ``tests/_model_cases.py``, and in float32 within its float32 rule;
+   each served MoE model's first 2 layers, in float32, must route every
+   token of every layer to the same experts on the card as on the CPU,
+   and agree within the float32 rule (``deepseek-v2-lite-16b`` with MLA
+   absorbed and expanded). No kernel of the port runs on this path.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
@@ -1127,21 +1134,92 @@ def host_gap(fn, reps: int):
     return statistics.median(host), max(host), pauses
 
 
+# phase 8's archs, each served this many times (the first cold)
+SERVED = (("smollm-360m", 2), ("yi-6b", 1), ("granite-20b", 1),
+          ("olmoe-1b-7b", 1), ("deepseek-v2-lite-16b", 1))
+
+
+class Routes:
+    """While active, records each call of ``repro_torch.models.moe.route``
+    (one a MoE layer and step): its top-k experts (N, k) and router
+    probabilities (N, E), on the device they ran on."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.seen = moe_mod, []
+
+    def __call__(self, router, xf, cfg):
+        probs, tope, topw = self.orig(router, xf, cfg)
+        self.seen.append((tope, probs))
+        return probs, tope, topw
+
+    def gap(self, k: int) -> float:
+        """The smallest gap between a k-th and a (k+1)-th router
+        probability over the recorded calls."""
+        gaps = []
+        for _, p in self.seen:
+            top = p.sort(-1, descending=True)[0]
+            gaps.append(float((top[:, k - 1] - top[:, k]).min()))
+        return min(gaps)
+
+    def __enter__(self):
+        self.orig, self.moe.route = self.moe.route, self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def step_bytes(model, routed):
+    """Bytes of the parameters one decode step must read: each block's
+    (the dense prefix's, attention, norms, the router, the shared expert)
+    and the head, and of the routed experts the ``routed[i]`` distinct ones
+    of MoE block i that the step's tokens went to; and the bytes of every
+    expert, which a dispatch over the whole (E, cap, d) slot buffer
+    reads."""
+    def nbytes(t):
+        return int(t.numel()) * t.element_size()
+
+    total, experts = nbytes(model.head), 0
+    moe_blocks = [b for b in model.blocks if "moe" in b]
+    for blk in [*model.prefix, *model.blocks]:
+        for part, leaves in blk.items():
+            total += sum(nbytes(w) for name, w in leaves.items()
+                         if part != "moe" or name == "router")
+    for blk, n in zip(moe_blocks, routed):
+        one = sum(nbytes(blk["moe"][w][0])
+                  for w in ("w_gate", "w_up", "w_down"))
+        total += n * one
+        experts += blk["moe"]["w_gate"].shape[0] * one
+    return total, experts
+
+
 def serve_models(dev, gpu):
-    """Phase 8: the dense model family served at full width through
-    ``repro_torch.launch.serve_model.serve`` (batch 4, prompt 16, 32 greedy
-    tokens, weights drawn from seed 0): ``smollm-360m`` twice (cold, warm),
-    ``yi-6b`` and ``granite-20b`` once, tokens of the right shape in the
-    vocabulary. For
-    each: decode ms per token step (CUDA events over 16 warm steps), tokens
-    per second including prefill, peak memory, the share of a profiled
-    step's device time in matrix products, and the least time of a step
-    (its bfloat16 weights read once over HBM). ``smollm-360m``'s
-    teacher-forced logits over the 16 prompt positions, on the card and on
-    the CPU from the same weights, must agree within the bfloat16
-    tolerance of ``tests/_model_cases.py``, and run in float32 within its
-    ``f32_tolerance``: bfloat16's tolerance is wide enough to pass a wrong
-    computation, float32's is not."""
+    """Phase 8: the dense and MoE model families served at full width
+    through ``repro_torch.launch.serve_model.serve`` (batch 4, prompt 16,
+    32 greedy tokens, weights drawn from seed 0): ``smollm-360m`` twice
+    (cold, warm), ``yi-6b``, ``granite-20b``, ``olmoe-1b-7b`` and
+    ``deepseek-v2-lite-16b`` once, tokens of the right shape in the
+    vocabulary. For each: decode ms per token step (CUDA events over 16
+    warm steps), tokens per second including prefill, peak memory, the
+    share of a profiled step's device time in matrix products, and the
+    step's least time: the bfloat16 parameters it must read once over HBM
+    (attention, norms, the dense prefix, the router, the shared expert,
+    the head, and of the routed experts only the distinct ones the step's
+    tokens went to, counted from its routing), beside the bytes of every
+    expert. ``smollm-360m``'s teacher-forced logits over the 16 prompt
+    positions, on the card and on the CPU from the same weights, must
+    agree within the bfloat16 tolerance of ``tests/_model_cases.py``, and
+    run in float32 within its ``f32_tolerance``: bfloat16's tolerance is
+    wide enough to pass a wrong computation, float32's is not. Each MoE
+    arch's served weights cut to their first 2 layers at full width
+    (``deepseek-v2-lite-16b``: its dense prefix and one MoE block, MLA
+    absorbed and expanded) run their teacher-forced logits in float32 on
+    the card and the CPU: the expert sets must be equal at every token and
+    layer, and the logits within ``f32_tolerance``; the smallest gap
+    between a k-th and a (k+1)-th router probability is printed. (A model
+    drawn at 2 layers is no stand-in: a stacked leaf takes its fan-in from
+    the layer axis, so its MoE blocks' matrices come 3-5x larger than the
+    served model's.)"""
     import numpy as np
     import torch
     from _model_cases import bf16_tolerance, f32_tolerance
@@ -1150,6 +1228,7 @@ def serve_models(dev, gpu):
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve_model import serve
+    from repro_torch.models import moe
     from repro_torch.models.transformer import Model
 
     B, P, G = 4, 16, 32
@@ -1163,8 +1242,52 @@ def serve_models(dev, gpu):
             out.append(logits)
         return torch.cat(out, 1), cache
 
-    for arch, runs in (("smollm-360m", 2), ("yi-6b", 1), ("granite-20b", 1)):
+    def card_against_cpu(arch, cfg, served, prompt):
+        """The served MoE model's first 2 layers (its prefix first) and its
+        head at full width, in float32, on the card and on the CPU: expert
+        sets equal, logits within the float32 tolerance."""
+        small = cfg.replace(num_layers=2, dtype="float32")
+        params = served.params()
+        params["blocks"] = params["blocks"][:2 - cfg.first_dense]
+        card = Model(small, device=dev, params=params)
+        host = Model(small, device="cpu", params=card.params())
+        size = sum(int(w.numel()) * 4 for w in host.parameters())
+        for absorb in ((True, False) if cfg.mla else (True,)):
+            c = small.replace(mla_absorb=absorb)
+            with Routes(moe) as on_card:
+                got, _ = teacher_forced(Model(c, device=dev,
+                                              params=card.params()), prompt)
+            with Routes(moe) as on_host:
+                want, _ = teacher_forced(Model(c, device="cpu",
+                                               params=host.params()),
+                                         prompt.cpu())
+            if len(on_card.seen) != len(on_host.seen) or not on_card.seen:
+                fail(f"[serve {arch}] {len(on_card.seen)} MoE calls on the "
+                     f"card, {len(on_host.seen)} on the CPU")
+            for i, ((a, _), (b, _)) in enumerate(zip(on_card.seen,
+                                                     on_host.seen)):
+                if not torch.equal(a.sort(-1)[0].cpu(), b.sort(-1)[0]):
+                    fail(f"[serve {arch}] MoE call {i}: the card's expert "
+                         f"sets differ from the CPU's")
+            err = float((got.cpu() - want).abs().max())
+            tol = f32_tolerance(small.num_layers)
+            what = f", mla_absorb={absorb}" if cfg.mla else ""
+            log(f"[serve {arch}] card against CPU in float32, 2 layers at "
+                f"full width{what} ({size / 1e9:.2f} GB of weights on the "
+                f"CPU): expert sets equal at all "
+                f"{sum(int(a.shape[0]) for a, _ in on_card.seen)} "
+                f"token-layer routings ({len(on_card.seen)} MoE calls); "
+                f"smallest top-{cfg.top_k} gap {on_card.gap(cfg.top_k)!r} "
+                f"(card), {on_host.gap(cfg.top_k)!r} (CPU); logits max abs "
+                f"err {err:.6f}, float32 tolerance {tol:.6f} (max |logit| "
+                f"{float(want.abs().max()):.4f}) ({gpu})")
+            if err > tol:
+                fail(f"[serve {arch}] card and CPU float32 logits differ by "
+                     f"{err}, beyond the float32 tolerance {tol}")
+
+    for arch, runs in SERVED:
         cfg = get_config(arch)
+        t_arch = time.monotonic()
         for run in range(runs):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1231,6 +1354,9 @@ def serve_models(dev, gpu):
         # a warm decode step at position P, timed and profiled
         nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         step = lambda: model.decode_step(cache, {"tokens": nxt}, P)
+        with Routes(moe) as routed:
+            step()
+        distinct = [int(torch.unique(e).numel()) for e, _ in routed.seen]
         ms = time_ms(step, reps=16)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1243,24 +1369,36 @@ def serve_models(dev, gpu):
         mm = sum(e.device_time_total for e in events
                  if e.key in ("aten::mm", "aten::bmm"))
         dt = cfg.cdtype
-        weights = sum(int(w.numel()) * w.element_size()
-                      for blk in model.blocks
-                      for part in ("attn", "mlp")
-                      for w in blk[part].values())
-        weights += int(model.head.numel()) * model.head.element_size()
-        kv = 2 * cfg.num_layers * B * (P + G) * cfg.num_kv_heads * \
-            cfg.head_dim * torch.finfo(dt).bits // 8
+        weights, experts = step_bytes(model, distinct)
+        if cfg.mla:
+            kv = (cfg.num_layers * B * (P + G) * (cfg.kv_lora_rank
+                                                  + cfg.qk_rope_dim)
+                  * torch.finfo(dt).bits // 8)
+        else:
+            kv = 2 * cfg.num_layers * B * (P + G) * cfg.num_kv_heads * \
+                cfg.head_dim * torch.finfo(dt).bits // 8
         bound_ms = weights / HBM_BYTES_PER_S * 1e3
+        routing = (f"; {distinct} distinct experts of {cfg.num_experts} "
+                   f"routed to in its {len(distinct)} MoE layers (mean "
+                   f"{sum(distinct) / len(distinct):.2f}); all experts "
+                   f"{experts} B, {experts / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+                   f"which a dispatch over the whole (E, cap, d) buffer "
+                   f"reads" if cfg.moe else "")
         log(f"[serve {arch}] decode step at batch {B}: {ms:.3f} ms a step "
             f"(CUDA events, 16 warm steps), {B * 1e3 / ms:.1f} tokens/s; "
             f"one profiled step: device busy {busy / 1e3:.3f} ms, of it "
             f"matrix products (aten::mm, aten::bmm) {mm / 1e3:.3f} ms, a "
             f"share of {mm / max(busy, 1e-9):.3f}; least time "
-            f"{bound_ms:.4f} ms ({weights} B of {dt} weights over HBM; the "
-            f"KV cache adds {kv} B), {bound_ms / ms:.3f} of it reached "
-            f"({gpu})")
-        del model, cache, logits
+            f"{bound_ms:.4f} ms ({weights} B of {dt} parameters a step "
+            f"reads, over HBM; the KV cache adds {kv} B){routing}, "
+            f"{bound_ms / ms:.3f} of it reached ({gpu})")
+        del cache, logits
+        if cfg.moe:
+            card_against_cpu(arch, cfg, model, prompt)
+        del model
         torch.cuda.empty_cache()
+        log(f"[serve {arch}] phase 8 for this arch took "
+            f"{time.monotonic() - t_arch:.1f} s")
 
 
 def quality(dev, gpu):

@@ -1,10 +1,11 @@
 """Batched serving driver (PyTorch port of ``repro.launch.serve_model``):
-prefill a prompt batch, then decode with the explicit KV cache. Dense
-architectures only (``models/transformer.py`` names the ROADMAP item each
-other family waits for). Runs on the card unless asked for the CPU.
+prefill a prompt batch, then decode with the explicit KV cache. The dense
+and MoE families (``olmoe-1b-7b``, and ``deepseek-v2-lite-16b`` with its
+compressed MLA cache); ``models/transformer.py`` names the ROADMAP item
+each other family waits for. Runs on the card unless asked for the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_model --arch smollm-360m --tokens 32
-  PYTHONPATH=src python -m repro_torch.launch.serve_model --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve_model --arch olmoe-1b-7b --device cpu
 """
 from __future__ import annotations
 

@@ -128,38 +128,42 @@ class Initializer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
-    def _draw(self, shape, fill):
-        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+    def _draw(self, shape, fill, dtype):
+        out = torch.empty(shape, dtype=dtype, device=self.device)
         for part in (out if len(shape) >= 3 else (out,)):
             part.copy_(fill(tuple(part.shape)))
         return out
 
-    def _normal(self, shape, s):
+    def _normal(self, shape, s, dtype):
         return self._draw(shape, lambda sh: torch.randn(
             sh, generator=self.generator, dtype=torch.float32,
-            device=self.device) * s)
+            device=self.device) * s, dtype)
 
-    def param(self, path: str, shape, init="normal", scale=None):
+    def param(self, path: str, shape, init="normal", scale=None, dtype=None):
         """One leaf. ``path`` names it, as the reference's does. A stacked
         leaf (leading layer axis) takes its fan-in from its first axis, as
-        the reference's does."""
+        the reference's does. ``dtype`` overrides the drawn leaves' dtype
+        for a leaf the model keeps in another (the MoE router)."""
         shape = tuple(int(s) for s in shape)
-        dtype = self.cfg.pdtype
+        drawn = self.dtype if dtype is None else dtype
         if init == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+            return torch.zeros(shape, dtype=self.cfg.pdtype,
+                               device=self.device)
         if init == "ones":
-            return torch.ones(shape, dtype=dtype, device=self.device)
+            return torch.ones(shape, dtype=self.cfg.pdtype,
+                              device=self.device)
         if init == "normal":
             fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
             return self._normal(shape, scale if scale is not None
-                                else 1.0 / math.sqrt(fan_in))
+                                else 1.0 / math.sqrt(fan_in), drawn)
         if init == "embed":
-            return self._normal(shape, scale if scale is not None else 1.0)
+            return self._normal(shape, scale if scale is not None else 1.0,
+                                drawn)
         if init == "uniform":
             s = scale if scale is not None else 1.0
             return self._draw(shape, lambda sh: torch.rand(
                 sh, generator=self.generator, dtype=torch.float32,
-                device=self.device) * (2 * s) - s)
+                device=self.device) * (2 * s) - s, drawn)
         raise ValueError(init)
 
 

@@ -7,8 +7,9 @@ the reference's numerics: RMSNorm statistics and RoPE in float32, float32
 attention scores under the -1e30 causal mask, softmax in float32, its
 weights cast to ``v``'s dtype. ``scaled_dot_product_attention`` would
 change both the numbers and the mask, so attention is written out with
-``torch.einsum``, as the reference leaves it to XLA. Cross-attention and
-MLA wait for their slices (ROADMAP Queue 1).
+``torch.einsum``, as the reference leaves it to XLA. MLA (DeepSeek's
+multi-head latent attention) decodes from its compressed cache, absorbed
+or expanded. Cross-attention waits for its slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -142,6 +143,97 @@ def attention(p, x, cfg: ModelConfig, *, positions, cache=None,
         # decode: positions past cache_index are masked by the causal offset
         out = attention_core(q, ck.to(dt), cv.to(dt), causal=True,
                              q_offset=cache_index, chunk=0)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
+    """The MLA projections; ``kv_norm`` is the RMSNorm scale of the latent
+    ``c_kv`` (ones, in ``cfg.pdtype``, as the norms' scales are)."""
+    d, H = cfg.d_model, cfg.num_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    return {
+        "wq": ini.param(f"{path}/wq", (*stack, d, H, dn + dr)),
+        "wkv_a": ini.param(f"{path}/wkv_a", (*stack, d, r)),
+        "wk_rope": ini.param(f"{path}/wk_rope", (*stack, d, dr)),
+        "kv_norm": ini.param(f"{path}/kv_norm", (*stack, r), init="ones"),
+        "wk_b": ini.param(f"{path}/wk_b", (*stack, r, H, dn)),
+        "wv_b": ini.param(f"{path}/wv_b", (*stack, r, H, dv)),
+        "wo": ini.param(f"{path}/wo", (*stack, H, dv, d),
+                        scale=1.0 / math.sqrt(H * dv)),
+    }
+
+
+def _scores(a, b, spec):
+    """``torch.einsum(spec, a, b)`` with float32 scores from inputs of the
+    compute dtype (the reference's ``preferred_element_type=float32``)."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
+def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
+                  cache_index=None):
+    """MLA. Without ``cache`` (prefill) the latent is expanded to per-head
+    keys and values. With ``cache`` (decode: the COMPRESSED latent, c_kv
+    (B, S_max, r) and k_rope (B, S_max, dr)) the step writes its latent at
+    ``cache_index`` in place and attends over the whole cache, positions
+    past ``cache_index`` masked: absorbed when ``cfg.mla_absorb`` (queries
+    mapped into the latent space, no per-step expansion of K/V), else
+    expanded. Returns (out, cache)."""
+    dt = cfg.cdtype
+    B, S, _ = x.shape
+    H, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"].to(dt))
+    c_kv = rmsnorm({"scale": p["kv_norm"]}, c_kv, cfg.norm_eps)
+    k_rope = torch.einsum("bsd,dk->bsk", x, p["wk_rope"].to(dt))
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+
+    scale = 1.0 / math.sqrt(dn + dr)
+    if cache is None:
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(dt))
+        v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(dt))
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], -1)
+        qf = torch.cat([q_nope, q_rope], -1)
+        out = attention_core(qf, k, v, causal=True, chunk=cfg.attn_chunk,
+                             scale=scale)
+    else:
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        end = cache_index + S
+        if not 0 <= cache_index <= end <= cc.shape[1]:
+            raise ValueError(f"cache positions [{cache_index}, {end}) outside "
+                             f"a cache of {cc.shape[1]}")
+        cc[:, cache_index:end] = c_kv.to(cc.dtype)
+        cr[:, cache_index:end] = k_rope.to(cr.dtype)
+        ccd, crd = cc.to(dt), cr.to(dt)
+        kpos_ok = (torch.arange(cc.shape[1], device=x.device)
+                   <= cache_index)[None, None, None, :]
+        s_r = _scores(q_rope, crd, "bshk,btk->bhst")
+        if cfg.mla_absorb:
+            # absorb W_UK into q: q_lat (B,S,H,r); scores = q_lat . c_kv +
+            # q_rope . k_rope
+            q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(dt))
+            s_n = _scores(q_lat, ccd, "bshr,btr->bhst")
+            w = torch.softmax(((s_n + s_r) * scale).masked_fill(
+                ~kpos_ok, -1e30), dim=-1)
+            ctx = torch.einsum("bhst,btr->bshr", w.to(dt), ccd)
+            out = torch.einsum("bshr,rhk->bshk", ctx, p["wv_b"].to(dt))
+        else:
+            k_nope = torch.einsum("btr,rhk->bthk", ccd, p["wk_b"].to(dt))
+            v = torch.einsum("btr,rhk->bthk", ccd, p["wv_b"].to(dt))
+            s_n = _scores(q_nope, k_nope, "bshk,bthk->bhst")
+            w = torch.softmax(((s_n + s_r) * scale).masked_fill(
+                ~kpos_ok, -1e30), dim=-1)
+            out = torch.einsum("bhst,bthk->bshk", w.to(dt), v)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
     return out, cache
 

@@ -1,17 +1,23 @@
-"""The dense decoder-only model (PyTorch port of the ``block_pattern ==
-"attn"`` path of ``repro/models/transformer.py``): dense GQA/MQA/MHA
-(smollm, yi, granite, phi3), with tied or separate embeddings.
+"""The decoder-only model (PyTorch port of the ``block_pattern == "attn"``
+path of ``repro/models/transformer.py``): dense GQA/MQA/MHA (smollm, yi,
+granite, phi3), MoE (olmoe) and MLA + MoE with a dense prefix
+(deepseek-v2-lite), with tied or separate embeddings.
 
 ``Model`` is an ``nn.Module`` with ``forward(batch)``, the single-token
 serving step ``decode_step(cache, batch, cache_index)`` and
 ``init_cache(B, S_max)``. It serves: no autograd and no remat (training is
 a later slice). Its parameters are the reference's tree with the stacked
-``(L, ...)`` layer axis unstacked into one entry a layer. The reference
-keeps them in ``cfg.param_dtype`` and casts the matrices to ``cfg.dtype``
-at every use; the model holds each matrix once, in ``cfg.dtype``, which
-computes the same numbers, and the norms' scales in ``cfg.param_dtype``.
-A config that needs a part not ported yet raises ``NotImplementedError``
-naming its ROADMAP item; it is never approximated.
+``(L, ...)`` layer axis unstacked into one entry a layer: ``prefix``, the
+``first_dense`` leading dense blocks (unstacked in the reference too), and
+``blocks``, the other ``num_layers - first_dense``, each with an ``mlp``
+or, for MoE configs, ``moe`` and the merged shared expert ``shared``. The
+reference keeps them in ``cfg.param_dtype`` and casts the matrices to
+``cfg.dtype`` at every use; the model holds each matrix once, in
+``cfg.dtype``, which computes the same numbers, and keeps in
+``cfg.param_dtype`` the leaves the reference reads in float32: the norms'
+scales (``kv_norm`` among them) and the MoE router. A config that needs a
+part not ported yet raises ``NotImplementedError`` naming its ROADMAP
+item; it is never approximated.
 """
 from __future__ import annotations
 
@@ -22,24 +28,27 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as ll
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import Initializer, ModelConfig, unstack
 
 # the config fields whose layers wait for a slice of their own, and what
 # they wait for (ROADMAP.md, Queue 1)
 _WAITS = (
-    ("mla", "MLA + MoE (deepseek-v2-lite-16b), ROADMAP Queue 1 item 15"),
-    ("first_dense", "MLA + MoE (deepseek-v2-lite-16b), ROADMAP Queue 1 "
-                    "item 15"),
-    ("moe", "MoE (olmoe-1b-7b, models/moe.py), ROADMAP Queue 1 item 14"),
     ("cross_attn_every", "VLM and audio (llama-3.2-vision-11b, "
                          "musicgen-large), ROADMAP Queue 1 item 17"),
     ("embedding_inputs", "VLM and audio (llama-3.2-vision-11b, "
                          "musicgen-large), ROADMAP Queue 1 item 17"),
 )
 
+# the leaves a block keeps in cfg.param_dtype: the norms' scales and the
+# router, which routes in float32
+_NORMS = ("ln1", "ln2")
+_KEPT = ("kv_norm", "router")
+
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the dense family."""
+    """Raise ``NotImplementedError`` for a config whose layers are not
+    ported yet."""
     if cfg.block_pattern != "attn":
         raise NotImplementedError(
             f"{cfg.name}: block_pattern {cfg.block_pattern!r} is not ported "
@@ -52,23 +61,38 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"yet: {waits}")
 
 
+def _init_attn_block(ini, cfg: ModelConfig, path: str, stack, use_moe: bool):
+    d = cfg.d_model
+    blk = {"ln1": ll.init_rmsnorm(ini, f"{path}/ln1", d, stack),
+           "ln2": ll.init_rmsnorm(ini, f"{path}/ln2", d, stack)}
+    init_attn = ll.init_mla if cfg.mla else ll.init_attention
+    blk["attn"] = init_attn(ini, f"{path}/attn", cfg, stack)
+    if use_moe:
+        blk["moe"] = moe_mod.init_moe(ini, f"{path}/moe", cfg, stack)
+        if cfg.d_ff_shared:
+            blk["shared"] = ll.init_mlp(ini, f"{path}/shared", d,
+                                        cfg.d_ff_shared, stack)
+    else:
+        blk["mlp"] = ll.init_mlp(ini, f"{path}/mlp", d, cfg.d_ff, stack)
+    return blk
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None):
     """The parameter tree drawn as the reference's ``Model.init`` draws it
-    (stacked layers, the same kinds, scales and order), layers unstacked,
-    on ``device`` (the card unless the caller asks for the CPU). The
-    matrices come in ``dtype`` (``cfg.pdtype`` unless given), the norms'
-    scales in ``cfg.pdtype``."""
+    (the prefix blocks unstacked, the others stacked; the same kinds,
+    scales and order), layers unstacked, on ``device`` (the card unless
+    the caller asks for the CPU). The matrices come in ``dtype``
+    (``cfg.pdtype`` unless given); the norms' scales and the router in
+    ``cfg.pdtype``."""
     ini = Initializer(cfg, seed=seed, device=device, dtype=dtype)
-    L, d = cfg.num_layers, cfg.d_model
+    d, n = cfg.d_model, cfg.num_layers - cfg.first_dense
     p: Dict[str, Any] = {"embed": ini.param("embed", (cfg.vocab_size, d),
                                             init="embed", scale=0.02)}
-    blocks = {
-        "ln1": ll.init_rmsnorm(ini, "blocks/ln1", d, (L,)),
-        "ln2": ll.init_rmsnorm(ini, "blocks/ln2", d, (L,)),
-        "attn": ll.init_attention(ini, "blocks/attn", cfg, (L,)),
-        "mlp": ll.init_mlp(ini, "blocks/mlp", d, cfg.d_ff, (L,)),
-    }
-    p["blocks"] = unstack(blocks, L)
+    if cfg.first_dense:
+        p["prefix"] = [_init_attn_block(ini, cfg, f"prefix{i}", (), False)
+                       for i in range(cfg.first_dense)]
+    p["blocks"] = unstack(_init_attn_block(ini, cfg, "blocks", (n,),
+                                           cfg.moe), n)
     p["final_norm"] = ll.init_rmsnorm(ini, "final_norm", d)
     if not cfg.tie_embeddings:
         p["lm_head"] = ini.param("lm_head", (d, cfg.vocab_size), scale=0.02)
@@ -80,19 +104,23 @@ def _param(x, device, dtype=None) -> nn.Parameter:
                         requires_grad=False)
 
 
-def _params(tree, device, dtype=None) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _param(v, device, dtype)
-                             for k, v in tree.items()})
+def _block(tree, device, dt) -> nn.ModuleDict:
+    """One block's parameters: each matrix cast to ``dt``, the leaves of
+    ``_NORMS`` and ``_KEPT`` as they are."""
+    return nn.ModuleDict({part: nn.ParameterDict({
+        name: _param(w, device, None if part in _NORMS or name in _KEPT
+                     else dt) for name, w in leaves.items()})
+        for part, leaves in tree.items()})
 
 
 class Model(nn.Module):
-    """The dense decoder on ``device`` (the card unless the caller asks for
-    the CPU; without a card asking for it raises). ``params`` (the tree of
+    """The decoder on ``device`` (the card unless the caller asks for the
+    CPU; without a card asking for it raises). ``params`` (the tree of
     ``init_params`` or of ``models/convert.from_reference``) is loaded with
     each matrix cast to ``cfg.dtype`` once, where the reference casts it at
-    every use (the same numbers), and the norms' scales as they are;
-    without it the parameters are drawn from ``seed`` on ``device``,
-    straight into those dtypes."""
+    every use (the same numbers), and the norms' scales and the router as
+    they are; without it the parameters are drawn from ``seed`` on
+    ``device``, straight into those dtypes."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  params=None):
@@ -103,15 +131,19 @@ class Model(nn.Module):
         dt = cfg.cdtype
         if params is None:
             params = init_params(cfg, seed=seed, device=device, dtype=dt)
-        if len(params["blocks"]) != cfg.num_layers:
-            raise ValueError(f"{len(params['blocks'])} layers of parameters "
-                             f"for a config of {cfg.num_layers}")
+        prefix = params.get("prefix", [])
+        if len(prefix) != cfg.first_dense or \
+                len(params["blocks"]) != cfg.num_layers - cfg.first_dense:
+            raise ValueError(f"{len(prefix)} + {len(params['blocks'])} "
+                             f"layers of parameters for a config of "
+                             f"{cfg.first_dense} + "
+                             f"{cfg.num_layers - cfg.first_dense}")
         self.embed = _param(params["embed"], device, dt)
-        self.blocks = nn.ModuleList(nn.ModuleDict({
-            "ln1": _params(b["ln1"], device), "ln2": _params(b["ln2"], device),
-            "attn": _params(b["attn"], device, dt),
-            "mlp": _params(b["mlp"], device, dt)}) for b in params["blocks"])
-        self.final_norm = _params(params["final_norm"], device)
+        self.prefix = nn.ModuleList(_block(b, device, dt) for b in prefix)
+        self.blocks = nn.ModuleList(_block(b, device, dt)
+                                    for b in params["blocks"])
+        self.final_norm = nn.ParameterDict({
+            k: _param(v, device) for k, v in params["final_norm"].items()})
         self.lm_head = (None if cfg.tie_embeddings
                         else _param(params["lm_head"], device, dt))
 
@@ -126,20 +158,35 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def _attn_block(self, p, x, positions, cache, cache_index):
+        """One block. Returns (x, the MoE load-balance loss, or None for a
+        block with a dense MLP)."""
         cfg = self.cfg
         h = ll.rmsnorm(p["ln1"], x, cfg.norm_eps, fast=cfg.fast_norm)
-        a, _ = ll.attention(p["attn"], h, cfg, positions=positions,
-                            cache=cache, cache_index=cache_index)
+        attend = ll.mla_attention if cfg.mla else ll.attention
+        a, _ = attend(p["attn"], h, cfg, positions=positions, cache=cache,
+                      cache_index=cache_index)
         x = x + a
         h = ll.rmsnorm(p["ln2"], x, cfg.norm_eps, fast=cfg.fast_norm)
-        return x + ll.mlp(p["mlp"], h, cfg.cdtype)
+        if "moe" not in p:
+            return x + ll.mlp(p["mlp"], h, cfg.cdtype), None
+        y, aux = moe_mod.moe_layer(p["moe"], h, cfg)
+        if "shared" in p:
+            y = y + ll.mlp(p["shared"], h, cfg.cdtype)
+        return x + y, aux
 
     def _run_blocks(self, x, positions, cache, cache_index):
+        """Returns (x, the summed load-balance loss, float32)."""
+        aux = torch.zeros((), device=x.device)
+        for i, blk in enumerate(self.prefix):
+            c = None if cache is None else cache["prefix"][i]
+            x, _ = self._attn_block(blk, x, positions, c, cache_index)
         for i, blk in enumerate(self.blocks):
             c = None if cache is None else {
-                "k": cache["blocks"]["k"][i], "v": cache["blocks"]["v"][i]}
-            x = self._attn_block(blk, x, positions, c, cache_index)
-        return x
+                k: v[i] for k, v in cache["blocks"].items()}
+            x, a = self._attn_block(blk, x, positions, c, cache_index)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     # ------------------------------------------------------------------
     # forward / decode
@@ -154,12 +201,13 @@ class Model(nn.Module):
         return torch.einsum("bsd,dv->bsv", h, self.head)
 
     def forward(self, batch):
-        """Logits (B, S, V) of ``batch["tokens"]`` (B, S), and the auxiliary
-        loss (zero: no MoE), as the reference's ``Model.forward``."""
+        """Logits (B, S, V) of ``batch["tokens"]`` (B, S), and the summed
+        load-balance loss of the MoE blocks (zero without them), as the
+        reference's ``Model.forward``."""
         x = self._embed_in(batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        x = self._run_blocks(x, positions, None, None)
-        return self._logits(x), torch.zeros((), device=x.device)
+        x, aux = self._run_blocks(x, positions, None, None)
+        return self._logits(x), aux
 
     def decode_step(self, cache, batch, cache_index: int):
         """One-token decode: ``batch["tokens"]`` (B, 1) at position
@@ -168,24 +216,40 @@ class Model(nn.Module):
         x = self._embed_in(batch)
         positions = torch.full((x.shape[0], 1), int(cache_index),
                                device=x.device)
-        x = self._run_blocks(x, positions, cache, int(cache_index))
+        x, _ = self._run_blocks(x, positions, cache, int(cache_index))
         return self._logits(x), cache
 
     def init_cache(self, B: int, S_max: int):
-        """The KV cache, zeros in ``cfg.dtype``: k and v of shape (L, B,
-        S_max, KH, Dh) under "blocks", as the reference's."""
+        """The cache, zeros in ``cfg.dtype``, as the reference's: under
+        "blocks" k and v (L, B, S_max, KH, Dh), or for MLA the compressed
+        c_kv (L, B, S_max, r) and k_rope (L, B, S_max, dr); under "prefix"
+        one such dict, unstacked, for each of the ``first_dense`` blocks."""
         cfg = self.cfg
-        shape = (cfg.num_layers, B, S_max, cfg.num_kv_heads, cfg.head_dim)
-        return {"blocks": {
-            "k": torch.zeros(shape, dtype=cfg.cdtype, device=self.embed.device),
-            "v": torch.zeros(shape, dtype=cfg.cdtype, device=self.embed.device)}}
+        if cfg.mla:
+            tails = {"c_kv": (cfg.kv_lora_rank,),
+                     "k_rope": (cfg.qk_rope_dim,)}
+        else:
+            tails = {n: (cfg.num_kv_heads, cfg.head_dim) for n in ("k", "v")}
+
+        def caches(stack):
+            return {n: torch.zeros((*stack, B, S_max, *tail),
+                                   dtype=cfg.cdtype, device=self.embed.device)
+                    for n, tail in tails.items()}
+
+        out = {"blocks": caches((len(self.blocks),))}
+        if self.prefix:
+            out["prefix"] = [caches(()) for _ in self.prefix]
+        return out
 
     def params(self):
         """The parameter tree, as ``params`` takes it."""
-        p = {"embed": self.embed,
-             "blocks": [{k: dict(v.items()) for k, v in b.items()}
-                        for b in self.blocks],
+        def tree(blocks):
+            return [{k: dict(v.items()) for k, v in b.items()} for b in blocks]
+
+        p = {"embed": self.embed, "blocks": tree(self.blocks),
              "final_norm": dict(self.final_norm.items())}
+        if self.prefix:
+            p["prefix"] = tree(self.prefix)
         if self.lm_head is not None:
             p["lm_head"] = self.lm_head
         return p

@@ -1,22 +1,31 @@
 """The reference's side of the port's model tests, built once a process and
-shared by ``tests/test_torch_models.py`` and ``tests/test_torch_serve_model.py``:
-an arch's SMOKE config, its ``Model``, its ``Model.init(seed=0)`` parameters,
-those parameters carried across to the port, and its jitted decode step.
-Nothing here is written to: the tests only read these trees.
+shared by ``tests/test_torch_models.py``, ``tests/test_torch_moe.py`` and
+``tests/test_torch_serve_model.py``: an arch's SMOKE config, its ``Model``
+(MoE configs on the trivial (1, 1) mesh), its ``Model.init(seed=0)``
+parameters, those parameters carried across to the port, and its jitted
+decode step. Nothing here is written to: the tests only read these trees.
+Two context managers observe a run of both sides: ``xla_products`` and
+``routes``.
 """
+import contextlib
 import functools
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import torch
 
+from repro.compat import make_mesh
 from repro.configs import get_config as ref_config
+from repro.models import moe as ref_moe
 from repro.models.transformer import Model as RefModel
-from repro_torch.models import convert
+from repro_torch.models import convert, moe
 
 DENSE = ["smollm-360m", "yi-6b", "granite-20b", "phi3-mini-3.8b"]
+MOE = ["olmoe-1b-7b", "deepseek-v2-lite-16b"]
 
 
 def _config(arch: str, replace=()):
@@ -24,8 +33,15 @@ def _config(arch: str, replace=()):
 
 
 @functools.lru_cache(maxsize=None)
+def _mesh():
+    return make_mesh((1, 1), ("data", "model"))
+
+
+@functools.lru_cache(maxsize=None)
 def _model(rcfg):
-    return RefModel(rcfg)
+    # the reference's MoE layer routes inside a shard_map over a mesh; its
+    # own tests give it the trivial (1, 1) mesh (tests/conftest.py)
+    return RefModel(rcfg, mesh=_mesh() if rcfg.moe else None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,3 +75,83 @@ def port_params(arch: str):
     """``ref_params(arch)`` as the port's parameter tree, on the CPU."""
     return convert.from_reference(jax.tree.map(np.asarray, ref_params(arch)),
                                   ref_model(arch)[0].num_layers)
+
+
+@contextlib.contextmanager
+def xla_products():
+    """``torch.einsum`` computed by ``jnp.einsum`` on the same operands
+    while the block runs: every matrix product of the port's model layers
+    is one ``torch.einsum`` call, so its float32 sums then run in the
+    reference's order, and every other rounding the block makes is the
+    port's own. A bfloat16 product's float32 sum order is the BLAS's:
+    oneDNN's and XLA's part where a sum sits within float32 rounding of a
+    bfloat16 midpoint, about 1 output in 1000, which moves a few of a
+    SMOKE block's 1024 outputs on some inputs, dense blocks' as well as
+    MoE blocks'."""
+    einsum = torch.einsum
+
+    def jnp_operand(t):
+        a = jnp.asarray(t.float().numpy())
+        return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+
+    def xla_einsum(spec, a, b):
+        out = jnp.einsum(spec, jnp_operand(a), jnp_operand(b))
+        return torch.from_numpy(np.array(out, np.float32)).to(
+            torch.promote_types(a.dtype, b.dtype))
+
+    torch.einsum = xla_einsum
+    try:
+        yield
+    finally:
+        torch.einsum = einsum
+
+
+@contextlib.contextmanager
+def routes(E: int, k: int):
+    """Record the routing of every MoE layer the reference and the port run
+    meanwhile, in order: ``(ref, port)``, two lists of (top-k experts (N,
+    k), the gap between the k-th and (k+1)-th router probability (N,)).
+    The reference's from its own router inputs (a ``jax.debug.callback``,
+    so a jitted or scanned step records too) through its lines
+    (``repro/models/moe.py:64-66``); the port's from ``moe.route``. A
+    function jitted before the recording began records nothing."""
+    ref, port = [], []
+    ref_layer, port_route = ref_moe.moe_layer, moe.route
+
+    def gap(p):
+        s = np.sort(np.asarray(p, np.float64), axis=-1)[:, ::-1]
+        return s[:, k - 1] - s[:, k]
+
+    def record(x, wr):
+        xf = jnp.asarray(x).reshape(-1, x.shape[-1]).astype(jnp.float32)
+        probs = jax.nn.softmax(jnp.einsum("nd,de->ne", xf,
+                                          jnp.asarray(wr, jnp.float32)), -1)
+        ref.append((np.asarray(jax.lax.top_k(probs, k)[1]), gap(probs)))
+
+    def moe_layer(p, x, cfg, mesh):
+        jax.debug.callback(record, x, p["router"], ordered=True)
+        return ref_layer(p, x, cfg, mesh)
+
+    def route(router, xf, cfg):
+        probs, tope, topw = port_route(router, xf, cfg)
+        port.append((tope.numpy(), gap(probs.numpy())))
+        return probs, tope, topw
+
+    ref_moe.moe_layer, moe.route = moe_layer, route
+    try:
+        yield ref, port
+    finally:
+        ref_moe.moe_layer, moe.route = ref_layer, port_route
+
+
+def same_routes(ref, port):
+    """Assert the two sides routed every token of every MoE layer call to
+    the same expert set; return the smallest router-probability gap between
+    a k-th and a (k+1)-th expert among them."""
+    assert len(ref) == len(port) > 0, (len(ref), len(port))
+    for i, ((re_, rg), (pe, pg)) in enumerate(zip(ref, port)):
+        np.testing.assert_array_equal(
+            np.sort(pe, -1), np.sort(re_, -1),
+            err_msg=f"MoE call {i}: expert sets part (smallest top-k gap "
+                    f"{min(rg.min(), pg.min())!r})")
+    return float(min(g.min() for _, g in ref + port))

@@ -31,8 +31,8 @@ from repro_torch.models import common
 from repro_torch.models.transformer import Model, init_params
 
 from _model_cases import F32_ATOL, tolerance
-from _model_reference import (DENSE, port_params, ref_model, ref_params,
-                              ref_step)
+from _model_reference import (DENSE, MOE, port_params, ref_model,
+                              ref_params, ref_step)
 
 # the teacher-forced cache holds 16 positions, as the serving test's
 # (tests/test_torch_serve_model.py) does, so the two share one jitted step
@@ -122,9 +122,10 @@ def test_block_matches_reference_op_by_op(arch):
     want, _, _ = rmodel._attn_block(
         block, jnp.asarray(x, jnp.float32).astype(jnp.bfloat16),
         jnp.asarray(pos), None, None, False)
-    got = port._attn_block(port.blocks[0],
-                           torch.from_numpy(x).float().bfloat16(),
-                           torch.from_numpy(pos), None, None)
+    got, aux = port._attn_block(port.blocks[0],
+                                torch.from_numpy(x).float().bfloat16(),
+                                torch.from_numpy(pos), None, None)
+    assert aux is None
     np.testing.assert_array_equal(f32(got), f32(want))
 
 
@@ -170,10 +171,12 @@ def test_model_runs_on_the_card_unless_asked_for_the_cpu():
             build(cfg)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in DENSE])
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if a not in DENSE + MOE])
 def test_non_dense_arch_raises(arch):
-    """The six architectures outside the dense family wait for slices of
-    their own: building their model raises and names the ROADMAP item."""
+    """The four architectures outside the dense and MoE families wait for
+    slices of their own: building their model raises and names the
+    ROADMAP item."""
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         Model(cfg, device="cpu")

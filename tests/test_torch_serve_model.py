@@ -1,14 +1,16 @@
 """The port's model-serving driver (``repro_torch.launch.serve_model``)
 against the reference's (``repro.launch.serve_model``), on the CPU.
 
-For each dense SMOKE config both drivers serve the same batch from the
-reference's ``Model.init(seed=0)`` weights (carried across with
+For each dense and MoE SMOKE config both packages serve the same batch
+from the reference's ``Model.init(seed=0)`` weights (carried across with
 ``repro_torch.models.convert``): the prompts must be the same draw, and the
 greedy tokens the same. Where a row's tokens part, the reference's logit of
 its own pick and of the port's pick at that step must lie within the
 bfloat16 tolerance of ``tests/_model_cases.py`` (a near-tie that the two
 computations' rounding can flip); the test then compares up to that step
-and says so in a warning. Any other parting fails.
+and says so in a warning. Any other parting fails. The MoE configs are
+served in float32 too, where every token and every expert choice must be
+the reference's.
 """
 import os
 
@@ -19,6 +21,7 @@ import subprocess
 import sys
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,8 +31,8 @@ from repro.launch.serve_model import serve as ref_serve
 from repro_torch.launch.serve_model import serve
 
 from _model_cases import bf16_tolerance
-from _model_reference import (DENSE, port_params, ref_model, ref_params,
-                              ref_step)
+from _model_reference import (DENSE, MOE, port_params, ref_model,
+                              ref_params, ref_step, routes, same_routes)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, PROMPT, GEN = 2, 8, 8
@@ -62,7 +65,7 @@ def ref_replay(arch, prompt, toks):
     return np.stack(out, axis=1)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_greedy_tokens_match_reference(arch):
     rcfg, _ = ref_model(arch)
     want = ref_serve(arch, smoke=True, batch=B, prompt_len=PROMPT,
@@ -94,6 +97,33 @@ def test_greedy_tokens_match_reference(arch):
                   f"parts them, compared up to there")
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_greedy_tokens_match_reference_in_float32(arch, monkeypatch):
+    """The MoE family served by both packages with their SMOKE configs in
+    float32, where neither side's rounding can swap an expert: the same
+    greedy tokens at every step, and the same experts for every token of
+    every MoE layer of the run (prefill and decode)."""
+    import repro.launch.serve_model as ref_serving
+    import repro_torch.launch.serve_model as serving
+    for module in (ref_serving, serving):
+        monkeypatch.setattr(module, "get_config",
+                            lambda a, smoke=False, get=module.get_config:
+                            get(a, smoke).replace(dtype="float32"))
+    rcfg, _ = ref_model(arch)
+    with routes(rcfg.num_experts, rcfg.top_k) as (ref_seen, port_seen):
+        want = ref_serve(arch, smoke=True, batch=B, prompt_len=PROMPT,
+                         gen_tokens=GEN, params=ref_params(arch),
+                         quiet=True)["tokens"]
+        got = serve(arch, smoke=True, batch=B, prompt_len=PROMPT,
+                    gen_tokens=GEN, params=port_params(arch), quiet=True,
+                    device="cpu")["tokens"]
+        jax.effects_barrier()
+    np.testing.assert_array_equal(got, want)
+    same_routes(ref_seen, port_seen)
+    assert len(port_seen) == (PROMPT + GEN) * (rcfg.num_layers
+                                               - rcfg.first_dense)
+
+
 def test_sampling_is_seeded():
     """At temperature > 0 the tokens come from a torch generator seeded with
     ``seed``: the same seed samples the same tokens."""
@@ -123,6 +153,19 @@ def test_cli_serves_on_the_cpu():
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "smollm-360m: generated 4x4 tokens" in res.stdout
+
+
+def test_cli_serves_the_moe_family_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    for arch in MOE:
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_model",
+             "--arch", arch, "--device", "cpu", "--prompt-len", "4",
+             "--tokens", "4"],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0, res.stderr
+        assert f"{arch}: generated 4x4 tokens" in res.stdout
 
 
 def test_serve_shim_warns_and_reexports():
