@@ -83,7 +83,7 @@ Phases, each failing loudly (no phase's failure is caught):
    energies from CPU JAX): every plan valid, and each cell's mean energy
    over the seeds at most the reference's mean plus two standard errors
    of its seed spread;
-8. the dense and MoE model families
+8. the dense, MoE and SSM model families
    (``repro_torch.launch.serve_model.serve``) at full width, weights drawn
    from seed 0 and held in bfloat16: ``smollm-360m`` (32 layers, d_model
    960), ``yi-6b`` (32 layers, d_model 4096), ``granite-20b`` (52 layers,
@@ -100,7 +100,17 @@ Phases, each failing loudly (no phase's failure is caught):
    each served MoE model's first 2 layers, in float32, must route every
    token of every layer to the same experts on the card as on the CPU,
    and agree within the float32 rule (``deepseek-v2-lite-16b`` with MLA
-   absorbed and expanded). No kernel of the port runs on this path.
+   absorbed and expanded); ``rwkv6-3b`` (32 RWKV6 layers, d_model 2560)
+   and ``zamba2-2.7b`` (54 Mamba2 layers in 9 groups, each followed by
+   one shared attention block) are served the same way, their least time
+   counting the float32 recurrent state read and written once and the
+   shared block once (beside its bytes in all 9 groups); each one's
+   leading layers at full width (2 for ``rwkv6-3b``, the first group of 6
+   and the shared block for ``zamba2-2.7b``) in float32 must agree on the
+   card and the CPU within the float32 rule (the final recurrent states'
+   differences printed), and, on the card, the chunked forward must agree
+   with the teacher-forced decode steps over the 48 served positions. No
+   kernel of the port runs on this path.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
@@ -1136,7 +1146,8 @@ def host_gap(fn, reps: int):
 
 # phase 8's archs, each served this many times (the first cold)
 SERVED = (("smollm-360m", 2), ("yi-6b", 1), ("granite-20b", 1),
-          ("olmoe-1b-7b", 1), ("deepseek-v2-lite-16b", 1))
+          ("olmoe-1b-7b", 1), ("deepseek-v2-lite-16b", 1),
+          ("rwkv6-3b", 1), ("zamba2-2.7b", 1))
 
 
 class Routes:
@@ -1169,45 +1180,74 @@ class Routes:
         self.moe.route = self.orig
 
 
+def _nbytes(t) -> int:
+    return int(t.numel()) * t.element_size()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def step_bytes(model, routed):
     """Bytes of the parameters one decode step must read: each block's
-    (the dense prefix's, attention, norms, the router, the shared expert)
-    and the head, and of the routed experts the ``routed[i]`` distinct ones
-    of MoE block i that the step's tokens went to; and the bytes of every
-    expert, which a dispatch over the whole (E, cap, d) slot buffer
-    reads."""
-    def nbytes(t):
-        return int(t.numel()) * t.element_size()
-
-    total, experts = nbytes(model.head), 0
+    (the dense prefix's, attention, norms, the router, the shared expert,
+    the SSM layers', zamba2's shared attention block once) and the head,
+    and of the routed experts the ``routed[i]`` distinct ones of MoE block
+    i that the step's tokens went to; the bytes of every expert, which a
+    dispatch over the whole (E, cap, d) slot buffer reads; and the bytes of
+    zamba2's shared attention block (0 without one), which the step reads
+    once in each of its groups."""
+    total, experts = _nbytes(model.head), 0
+    shared = (0 if model.shared_attn is None else
+              sum(_nbytes(w) for leaves in model.shared_attn.values()
+                  for w in leaves.values()))
     moe_blocks = [b for b in model.blocks if "moe" in b]
     for blk in [*model.prefix, *model.blocks]:
         for part, leaves in blk.items():
-            total += sum(nbytes(w) for name, w in leaves.items()
+            total += sum(_nbytes(w) for name, w in leaves.items()
                          if part != "moe" or name == "router")
     for blk, n in zip(moe_blocks, routed):
-        one = sum(nbytes(blk["moe"][w][0])
+        one = sum(_nbytes(blk["moe"][w][0])
                   for w in ("w_gate", "w_up", "w_down"))
         total += n * one
         experts += blk["moe"]["w_gate"].shape[0] * one
-    return total, experts
+    return total + shared, experts, shared
+
+
+def cache_bytes(cache):
+    """Bytes of a model's cache: (the attention KV cache's, the recurrent
+    state's: rwkv6's token shifts and wkv state, zamba2's conv and SSM
+    states), which a decode step reads and writes once."""
+    blocks = cache["blocks"]
+    state = blocks.get("mamba", blocks if "wkv" in blocks else {})
+    state_b = sum(_nbytes(t) for t in _leaves(state))
+    return sum(_nbytes(t) for t in _leaves(cache)) - state_b, state_b
 
 
 def serve_models(dev, gpu):
-    """Phase 8: the dense and MoE model families served at full width
+    """Phase 8: the dense, MoE and SSM model families served at full width
     through ``repro_torch.launch.serve_model.serve`` (batch 4, prompt 16,
     32 greedy tokens, weights drawn from seed 0): ``smollm-360m`` twice
-    (cold, warm), ``yi-6b``, ``granite-20b``, ``olmoe-1b-7b`` and
-    ``deepseek-v2-lite-16b`` once, tokens of the right shape in the
-    vocabulary. For each: decode ms per token step (CUDA events over 16
-    warm steps), tokens per second including prefill, peak memory, the
-    share of a profiled step's device time in matrix products, and the
-    step's least time: the bfloat16 parameters it must read once over HBM
-    (attention, norms, the dense prefix, the router, the shared expert,
-    the head, and of the routed experts only the distinct ones the step's
-    tokens went to, counted from its routing), beside the bytes of every
-    expert. ``smollm-360m``'s teacher-forced logits over the 16 prompt
-    positions, on the card and on the CPU from the same weights, must
+    (cold, warm), ``yi-6b``, ``granite-20b``, ``olmoe-1b-7b``,
+    ``deepseek-v2-lite-16b``, ``rwkv6-3b`` and ``zamba2-2.7b`` once, tokens
+    of the right shape in the vocabulary. For each: decode ms per token
+    step (CUDA events over 16 warm steps), tokens per second including
+    prefill, peak memory, the share of a profiled step's device time in
+    matrix products, and the step's least time: the bfloat16 parameters
+    it must read once over HBM (attention, norms, the dense prefix, the
+    router, the shared expert, the head, and of the routed experts only
+    the distinct ones the step's tokens went to, counted from its
+    routing), beside the bytes of every expert; for the SSM family, plus
+    the float32 recurrent state read and written once, zamba2's shared
+    block counted once. ``smollm-360m``'s teacher-forced logits over the
+    16 prompt positions, on the card and on the CPU from the same weights, must
     agree within the bfloat16 tolerance of ``tests/_model_cases.py``, and
     run in float32 within its ``f32_tolerance``: bfloat16's tolerance is
     wide enough to pass a wrong computation, float32's is not. Each MoE
@@ -1219,7 +1259,7 @@ def serve_models(dev, gpu):
     between a k-th and a (k+1)-th router probability is printed. (A model
     drawn at 2 layers is no stand-in: a stacked leaf takes its fan-in from
     the layer axis, so its MoE blocks' matrices come 3-5x larger than the
-    served model's.)"""
+    served model's.) The SSM archs' own checks are ``ssm_checks``'s."""
     import numpy as np
     import torch
     from _model_cases import bf16_tolerance, f32_tolerance
@@ -1233,14 +1273,77 @@ def serve_models(dev, gpu):
 
     B, P, G = 4, 16, 32
 
-    def teacher_forced(model, prompt):
+    def teacher_forced(model, toks):
         cache = model.init_cache(B, P + G)
         out = []
-        for t in range(P):
+        for t in range(toks.shape[1]):
             logits, cache = model.decode_step(
-                cache, {"tokens": prompt[:, t:t + 1]}, t)
+                cache, {"tokens": toks[:, t:t + 1]}, t)
             out.append(logits)
         return torch.cat(out, 1), cache
+
+    def ssm_checks(arch, cfg, served, prompt, seq):
+        """The served SSM model's leading layers at full width in float32
+        (``rwkv6-3b``: its first 2 layers; ``zamba2-2.7b``: its first
+        group, M Mamba2 layers and the shared block) and its head: the
+        teacher-forced logits over the prompt on the card and on the CPU
+        within ``f32_tolerance``, each final cache leaf's max abs
+        difference printed; then on the card ``Model.forward`` (the chunked
+        forms) against the teacher-forced ``decode_step`` (``gla_step``)
+        over the served sequence (prompt and generated tokens, 48
+        positions: 3 chunks of ``rwkv6``'s 16; zamba2 at its
+        ``gla_chunk`` 128, one chunk, and at 16, three), within
+        ``f32_tolerance``."""
+        zamba = cfg.block_pattern == "zamba2"
+        n = cfg.shared_attn_every if zamba else 2
+        small = cfg.replace(num_layers=n, dtype="float32")
+        params = served.params()
+        params["blocks"] = params["blocks"][:n]
+        card = Model(small, device=dev, params=params)
+        host = Model(small, device="cpu", params=card.params())
+        size = sum(int(w.numel()) * 4 for w in host.parameters())
+        tol = f32_tolerance(small.num_layers)
+        got, got_cache = teacher_forced(card, prompt)
+        want, want_cache = teacher_forced(host, prompt.cpu())
+        err = float((got.cpu() - want).abs().max())
+
+        def diffs(w, g, path):
+            if isinstance(w, dict):
+                for k in w:
+                    yield from diffs(w[k], g[k], f"{path}.{k}" if path else k)
+            else:
+                yield (f"{path} {float((g.cpu() - w).abs().max()):.3g} (max "
+                       f"|{path}| {float(w.abs().max()):.4g})")
+
+        leaves = list(diffs(want_cache["blocks"], got_cache["blocks"], ""))
+        log(f"[serve {arch}] card against CPU in float32, the served "
+            f"model's first {n} layers{' (one group)' if zamba else ''} at "
+            f"full width ({size / 1e9:.2f} GB of weights on the CPU): "
+            f"teacher-forced logits over {P} positions max abs err "
+            f"{err:.6f}, float32 tolerance {tol:.6f} (max |logit| "
+            f"{float(want.abs().max()):.4f}); final cache, max abs err: "
+            f"{'; '.join(leaves)} ({gpu})")
+        if err > tol:
+            fail(f"[serve {arch}] card and CPU float32 logits differ by "
+                 f"{err}, beyond the float32 tolerance {tol}")
+        del host, want_cache
+        for chunk in ((small.gla_chunk, 16) if zamba else (None,)):
+            m = card if chunk in (None, small.gla_chunk) else Model(
+                small.replace(gla_chunk=chunk), device=dev,
+                params=card.params())
+            chunked, _ = m.forward({"tokens": seq})
+            stepped, _ = teacher_forced(m, seq)
+            err = float((chunked - stepped).abs().max())
+            what = (f"gla_chunk {chunk}, {-(-seq.shape[1] // chunk)} "
+                    f"chunk(s)" if zamba else "chunk 16, 3 chunks")
+            log(f"[serve {arch}] on the card, float32, {n} layers: "
+                f"Model.forward (chunked, {what}) against teacher-forced "
+                f"decode_step (gla_step) over {seq.shape[1]} positions: "
+                f"max abs err {err:.6f}, float32 tolerance {tol:.6f} "
+                f"({gpu})")
+            if err > tol:
+                fail(f"[serve {arch}] chunked forward and decode steps "
+                     f"differ by {err}, beyond the float32 tolerance {tol}")
 
     def card_against_cpu(arch, cfg, served, prompt):
         """The served MoE model's first 2 layers (its prefix first) and its
@@ -1369,32 +1472,39 @@ def serve_models(dev, gpu):
         mm = sum(e.device_time_total for e in events
                  if e.key in ("aten::mm", "aten::bmm"))
         dt = cfg.cdtype
-        weights, experts = step_bytes(model, distinct)
-        if cfg.mla:
-            kv = (cfg.num_layers * B * (P + G) * (cfg.kv_lora_rank
-                                                  + cfg.qk_rope_dim)
-                  * torch.finfo(dt).bits // 8)
-        else:
-            kv = 2 * cfg.num_layers * B * (P + G) * cfg.num_kv_heads * \
-                cfg.head_dim * torch.finfo(dt).bits // 8
-        bound_ms = weights / HBM_BYTES_PER_S * 1e3
+        weights, experts, shared = step_bytes(model, distinct)
+        kv, state = cache_bytes(cache)
+        # the recurrent state is read and written once a step
+        bound_ms = (weights + 2 * state) / HBM_BYTES_PER_S * 1e3
         routing = (f"; {distinct} distinct experts of {cfg.num_experts} "
                    f"routed to in its {len(distinct)} MoE layers (mean "
                    f"{sum(distinct) / len(distinct):.2f}); all experts "
                    f"{experts} B, {experts / HBM_BYTES_PER_S * 1e3:.4f} ms, "
                    f"which a dispatch over the whole (E, cap, d) buffer "
                    f"reads" if cfg.moe else "")
+        recurrent = (f"; the float32 recurrent state {state} B, read and "
+                     f"written once, counted in it" if state else "")
+        groups = (f"; the shared attention block {shared} B, counted "
+                  f"once, {len(model.blocks) // cfg.shared_attn_every * shared}"
+                  f" B if read in each of its "
+                  f"{len(model.blocks) // cfg.shared_attn_every} groups"
+                  if shared else "")
         log(f"[serve {arch}] decode step at batch {B}: {ms:.3f} ms a step "
             f"(CUDA events, 16 warm steps), {B * 1e3 / ms:.1f} tokens/s; "
             f"one profiled step: device busy {busy / 1e3:.3f} ms, of it "
             f"matrix products (aten::mm, aten::bmm) {mm / 1e3:.3f} ms, a "
             f"share of {mm / max(busy, 1e-9):.3f}; least time "
-            f"{bound_ms:.4f} ms ({weights} B of {dt} parameters a step "
-            f"reads, over HBM; the KV cache adds {kv} B){routing}, "
-            f"{bound_ms / ms:.3f} of it reached ({gpu})")
+            f"{bound_ms:.4f} ms ({weights} B of parameters a step reads "
+            f"({dt} matrices), over HBM{recurrent}; the KV cache adds "
+            f"{kv} B){groups}{routing}, {bound_ms / ms:.3f} of it reached "
+            f"({gpu})")
         del cache, logits
         if cfg.moe:
             card_against_cpu(arch, cfg, model, prompt)
+        if cfg.block_pattern != "attn":
+            seq = torch.cat([prompt, torch.as_tensor(
+                res["tokens"], dtype=torch.int32, device=dev)], 1)
+            ssm_checks(arch, cfg, model, prompt, seq)
         del model
         torch.cuda.empty_cache()
         log(f"[serve {arch}] phase 8 for this arch took "
@@ -1483,6 +1593,13 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(gpu)
+
+    laps = [time.monotonic()]
+
+    def lap(phases):
+        laps.append(time.monotonic())
+        log(f"[time] phase {phases}: {laps[-1] - laps[-2]:.1f} s (the run so "
+            f"far {laps[-1] - laps[0]:.1f} s)")
 
     # 1. build ---------------------------------------------------------------
     t0 = time.monotonic()
@@ -1992,14 +2109,20 @@ def main(argv=None) -> int:
     entry("usl_runtime[grid]", path_launches, err, ms, plain_ms, bound_ms,
           bound_by)
 
+    lap("1-4, 6 and the kernels' numbers")
+
     # 5. the control plane ---------------------------------------------------
     control_plane(dev, gpu, cfg, icfg)
 
+    lap("5")
+
     # 7. plan quality against the reference ----------------------------------
     quality(dev, gpu)
+    lap("7")
 
-    # 8. the dense model family at full width -----------------------------------
+    # 8. the dense, MoE and SSM model families at full width -----------------
     serve_models(dev, gpu)
+    lap("8")
 
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

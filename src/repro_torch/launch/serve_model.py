@@ -1,11 +1,16 @@
 """Batched serving driver (PyTorch port of ``repro.launch.serve_model``):
-prefill a prompt batch, then decode with the explicit KV cache. The dense
-and MoE families (``olmoe-1b-7b``, and ``deepseek-v2-lite-16b`` with its
-compressed MLA cache); ``models/transformer.py`` names the ROADMAP item
-each other family waits for. Runs on the card unless asked for the CPU.
+prefill a prompt batch, then decode with the explicit KV/state cache. The
+dense and MoE families (``olmoe-1b-7b``, and ``deepseek-v2-lite-16b`` with
+its compressed MLA cache) and the SSM family (``rwkv6-3b``'s shifts and
+wkv state, ``zamba2-2.7b``'s conv and SSM states beside its shared
+attention block's KV cache: the prefill is a repeated decode, as the
+reference's, so serving runs ``models/gla.py:gla_step``);
+``models/transformer.py`` names the ROADMAP item the VLM and audio models
+wait for. Runs on the card unless asked for the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_model --arch smollm-360m --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve_model --arch olmoe-1b-7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve_model --arch rwkv6-3b --device cpu
 """
 from __future__ import annotations
 

@@ -141,9 +141,10 @@ class Initializer:
 
     def param(self, path: str, shape, init="normal", scale=None, dtype=None):
         """One leaf. ``path`` names it, as the reference's does. A stacked
-        leaf (leading layer axis) takes its fan-in from its first axis, as
-        the reference's does. ``dtype`` overrides the drawn leaves' dtype
-        for a leaf the model keeps in another (the MoE router)."""
+        leaf (leading layer axis, or zamba2's (G, M) group axes) takes its
+        fan-in from its first axis, as the reference's does. ``dtype``
+        overrides the drawn leaves' dtype for a leaf the model keeps in
+        another (the MoE router, RWKV6's decay path and bonus)."""
         shape = tuple(int(s) for s in shape)
         drawn = self.dtype if dtype is None else dtype
         if init == "zeros":
@@ -194,12 +195,17 @@ def param_count(params: Dict[str, Any]) -> int:
     return sum(int(x.numel()) for x in _leaves(params))
 
 
-def unstack(tree, n: int):
-    """The ``n`` slices along the leading axis of every leaf of ``tree``:
-    a stacked (L, ...) layer tree -> a list of L per-layer trees (views)."""
+def unstack(tree, n):
+    """The slices along the leading axis of every leaf of ``tree``: a
+    stacked (L, ...) layer tree -> a list of L per-layer trees (views).
+    ``n`` is L, or a tuple of leading axes, as zamba2's (G, M) groups of
+    Mamba2 layers: the list then holds their G * M layers in order."""
+    lead = (n,) if isinstance(n, int) else tuple(n)
     if isinstance(tree, dict):
-        parts = {k: unstack(v, n) for k, v in tree.items()}
-        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-    if tree.shape[0] != n:
-        raise ValueError(f"leading axis {tree.shape[0]}, expected {n}")
-    return [tree[i] for i in range(n)]
+        parts = {k: unstack(v, lead) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()}
+                for i in range(math.prod(lead))]
+    if tuple(tree.shape[:len(lead)]) != lead:
+        raise ValueError(f"leading axes {tuple(tree.shape[:len(lead)])}, "
+                         f"expected {lead}")
+    return list(tree.reshape(-1, *tree.shape[len(lead):]).unbind(0))

@@ -1,6 +1,7 @@
 """Core transformer layers (PyTorch port of ``repro/models/layers.py``):
 RMSNorm, RoPE, GQA/MQA/MHA attention (blockwise over query chunks) and the
-SwiGLU MLP.
+SwiGLU MLP, and the activations written as the reference's XLA computes
+them (``logistic``, ``silu``, ``softplus``).
 
 Plain functions on nested dicts of tensors, as the reference's are, with
 the reference's numerics: RMSNorm statistics and RoPE in float32, float32
@@ -252,12 +253,27 @@ def init_mlp(ini: Initializer, path: str, d: int, d_ff: int, stack=()):
     }
 
 
+def logistic(x):
+    """``jax.nn.sigmoid`` (``lax.logistic``) as the reference computes it:
+    1 / (1 + exp(-x)) with every op rounded in x's dtype (XLA's
+    expansion)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x):
-    """``jax.nn.silu`` as the reference computes it: x * logistic(x), the
-    logistic expanded to 1 / (1 + exp(-x)) with every op rounded in x's
-    dtype (XLA's expansion; ``F.silu`` rounds once, 1 bfloat16 ulp apart
+    """``jax.nn.silu`` as the reference computes it: x * logistic(x), every
+    op rounded in x's dtype (``F.silu`` rounds once, 1 bfloat16 ulp apart
     on about a third of the inputs)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * logistic(x)
+
+
+def softplus(x):
+    """``jax.nn.softplus`` as the reference computes it,
+    ``jnp.logaddexp(x, 0)``: max(x, 0) + log1p(exp(-|x|)), NaN inputs
+    passed through (``F.softplus`` has a threshold of 20 and another
+    formula)."""
+    return torch.where(torch.isnan(x), x,
+                       torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs())))
 
 
 def mlp(p, x, dt):

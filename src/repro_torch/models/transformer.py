@@ -1,23 +1,31 @@
-"""The decoder-only model (PyTorch port of the ``block_pattern == "attn"``
-path of ``repro/models/transformer.py``): dense GQA/MQA/MHA (smollm, yi,
+"""The decoder-only model (PyTorch port of ``repro/models/transformer.py``):
+the ``block_pattern == "attn"`` family, dense GQA/MQA/MHA (smollm, yi,
 granite, phi3), MoE (olmoe) and MLA + MoE with a dense prefix
-(deepseek-v2-lite), with tied or separate embeddings.
+(deepseek-v2-lite), with tied or separate embeddings; RWKV6 "Finch"
+(``rwkv6``: time mix and channel mix, attention-free); and the Mamba2
+hybrid (``zamba2``: groups of Mamba2 layers, each group followed by one
+attention block whose weights every group shares).
 
 ``Model`` is an ``nn.Module`` with ``forward(batch)``, the single-token
 serving step ``decode_step(cache, batch, cache_index)`` and
 ``init_cache(B, S_max)``. It serves: no autograd and no remat (training is
 a later slice). Its parameters are the reference's tree with the stacked
-``(L, ...)`` layer axis unstacked into one entry a layer: ``prefix``, the
+layer axes unstacked into one entry a layer: ``prefix``, the
 ``first_dense`` leading dense blocks (unstacked in the reference too), and
-``blocks``, the other ``num_layers - first_dense``, each with an ``mlp``
-or, for MoE configs, ``moe`` and the merged shared expert ``shared``. The
-reference keeps them in ``cfg.param_dtype`` and casts the matrices to
-``cfg.dtype`` at every use; the model holds each matrix once, in
-``cfg.dtype``, which computes the same numbers, and keeps in
-``cfg.param_dtype`` the leaves the reference reads in float32: the norms'
-scales (``kv_norm`` among them) and the MoE router. A config that needs a
-part not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item; it is never approximated.
+``blocks``, the other layers, each with an ``mlp`` or, for MoE configs,
+``moe`` and the merged shared expert ``shared``; for ``rwkv6`` the (L,)
+stack of ``ln1``, ``tm``, ``ln2``, ``cm``; for ``zamba2`` the (G, M)
+stack of ``ln`` and ``mamba``, its G * M layers in order, and the one
+unstacked ``shared_attn`` block. The reference keeps them in
+``cfg.param_dtype`` and casts the matrices to ``cfg.dtype`` at every use;
+the model holds each matrix once, in ``cfg.dtype``, which computes the
+same numbers, and keeps in ``cfg.param_dtype`` the leaves the reference
+reads in float32: the norms' scales (``kv_norm``, RWKV6's ``ln_scale`` and
+Mamba2's gated ``norm`` among them), the MoE router, RWKV6's decay path
+(``w0``, ``decay_w1``, ``decay_w2``) and bonus ``u``, and Mamba2's
+``a_log`` and ``dt_bias``. A config that needs a part not ported yet
+(cross-attention, embedding inputs) raises ``NotImplementedError`` naming
+its ROADMAP item; it is never approximated.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.common import Initializer, ModelConfig, unstack
 
 # the config fields whose layers wait for a slice of their own, and what
@@ -40,20 +49,23 @@ _WAITS = (
                          "musicgen-large), ROADMAP Queue 1 item 17"),
 )
 
-# the leaves a block keeps in cfg.param_dtype: the norms' scales and the
-# router, which routes in float32
-_NORMS = ("ln1", "ln2")
-_KEPT = ("kv_norm", "router")
+# the leaves a block keeps in cfg.param_dtype: the norms' scales, the
+# router, which routes in float32, and the SSM leaves the reference reads in
+# float32 (ssm.py: RWKV6's decay path, bonus and group-norm scale; Mamba2's
+# decay, step bias and gated-norm scale)
+_NORMS = ("ln", "ln1", "ln2")
+_KEPT = ("kv_norm", "router", "w0", "decay_w1", "decay_w2", "u", "ln_scale",
+         "a_log", "dt_bias", "norm")
+
+_PATTERNS = ("attn", "rwkv6", "zamba2")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose layers are not
-    ported yet."""
-    if cfg.block_pattern != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: block_pattern {cfg.block_pattern!r} is not ported "
-            f"yet: SSM/hybrid (rwkv6-3b, zamba2-2.7b, models/ssm.py, "
-            f"models/gla.py), ROADMAP Queue 1 item 16")
+    ported yet, ``ValueError`` for a block pattern the reference has no
+    model of."""
+    if cfg.block_pattern not in _PATTERNS:
+        raise ValueError(f"{cfg.name}: block_pattern {cfg.block_pattern!r}")
     for field, waits in _WAITS:
         if getattr(cfg, field):
             raise NotImplementedError(
@@ -77,22 +89,65 @@ def _init_attn_block(ini, cfg: ModelConfig, path: str, stack, use_moe: bool):
     return blk
 
 
+def _groups(cfg: ModelConfig):
+    """zamba2's (G, M): G groups of M Mamba2 layers, each group followed by
+    the shared attention block."""
+    M = cfg.shared_attn_every
+    return cfg.num_layers // M, M
+
+
+def _num_blocks(cfg: ModelConfig) -> int:
+    """The entries of ``blocks``: the layers past the dense prefix, or for
+    ``zamba2`` the G * M Mamba2 layers."""
+    if cfg.block_pattern == "zamba2":
+        G, M = _groups(cfg)
+        return G * M
+    return cfg.num_layers - cfg.first_dense
+
+
+def _init_blocks(ini, cfg: ModelConfig):
+    """The reference's ``Model._init_blocks``: each pattern's stack drawn at
+    the reference's stack shape, (L,) or (G, M), so a leaf takes its fan-in
+    from the same axis, then unstacked."""
+    d, pat = cfg.d_model, cfg.block_pattern
+    if pat == "rwkv6":
+        L = cfg.num_layers
+        return {"blocks": unstack({
+            "ln1": ll.init_rmsnorm(ini, "blocks/ln1", d, (L,)),
+            "tm": ssm.init_rwkv6_tm(ini, "blocks/tm", cfg, (L,)),
+            "ln2": ll.init_rmsnorm(ini, "blocks/ln2", d, (L,)),
+            "cm": ssm.init_rwkv6_cm(ini, "blocks/cm", cfg, (L,)),
+        }, L)}
+    if pat == "zamba2":
+        GM = _groups(cfg)
+        return {"blocks": unstack({
+            "ln": ll.init_rmsnorm(ini, "blocks/ln", d, GM),
+            "mamba": ssm.init_mamba2(ini, "blocks/mamba", cfg, GM),
+        }, GM), "shared_attn": _init_attn_block(ini, cfg, "shared_attn", (),
+                                                False)}
+    out = {}
+    if cfg.first_dense:
+        out["prefix"] = [_init_attn_block(ini, cfg, f"prefix{i}", (), False)
+                         for i in range(cfg.first_dense)]
+    n = _num_blocks(cfg)
+    out["blocks"] = unstack(_init_attn_block(ini, cfg, "blocks", (n,),
+                                             cfg.moe), n)
+    return out
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None):
     """The parameter tree drawn as the reference's ``Model.init`` draws it
     (the prefix blocks unstacked, the others stacked; the same kinds,
     scales and order), layers unstacked, on ``device`` (the card unless
     the caller asks for the CPU). The matrices come in ``dtype``
-    (``cfg.pdtype`` unless given); the norms' scales and the router in
-    ``cfg.pdtype``."""
+    (``cfg.pdtype`` unless given); the leaves of ``_NORMS`` and ``_KEPT``
+    in ``cfg.pdtype``."""
+    check_supported(cfg)
     ini = Initializer(cfg, seed=seed, device=device, dtype=dtype)
-    d, n = cfg.d_model, cfg.num_layers - cfg.first_dense
+    d = cfg.d_model
     p: Dict[str, Any] = {"embed": ini.param("embed", (cfg.vocab_size, d),
                                             init="embed", scale=0.02)}
-    if cfg.first_dense:
-        p["prefix"] = [_init_attn_block(ini, cfg, f"prefix{i}", (), False)
-                       for i in range(cfg.first_dense)]
-    p["blocks"] = unstack(_init_attn_block(ini, cfg, "blocks", (n,),
-                                           cfg.moe), n)
+    p.update(_init_blocks(ini, cfg))
     p["final_norm"] = ll.init_rmsnorm(ini, "final_norm", d)
     if not cfg.tie_embeddings:
         p["lm_head"] = ini.param("lm_head", (d, cfg.vocab_size), scale=0.02)
@@ -118,9 +173,9 @@ class Model(nn.Module):
     CPU; without a card asking for it raises). ``params`` (the tree of
     ``init_params`` or of ``models/convert.from_reference``) is loaded with
     each matrix cast to ``cfg.dtype`` once, where the reference casts it at
-    every use (the same numbers), and the norms' scales and the router as
-    they are; without it the parameters are drawn from ``seed`` on
-    ``device``, straight into those dtypes."""
+    every use (the same numbers), and the leaves of ``_NORMS`` and
+    ``_KEPT`` as they are; without it the parameters are drawn from
+    ``seed`` on ``device``, straight into those dtypes."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  params=None):
@@ -133,15 +188,16 @@ class Model(nn.Module):
             params = init_params(cfg, seed=seed, device=device, dtype=dt)
         prefix = params.get("prefix", [])
         if len(prefix) != cfg.first_dense or \
-                len(params["blocks"]) != cfg.num_layers - cfg.first_dense:
+                len(params["blocks"]) != _num_blocks(cfg):
             raise ValueError(f"{len(prefix)} + {len(params['blocks'])} "
                              f"layers of parameters for a config of "
-                             f"{cfg.first_dense} + "
-                             f"{cfg.num_layers - cfg.first_dense}")
+                             f"{cfg.first_dense} + {_num_blocks(cfg)}")
         self.embed = _param(params["embed"], device, dt)
         self.prefix = nn.ModuleList(_block(b, device, dt) for b in prefix)
         self.blocks = nn.ModuleList(_block(b, device, dt)
                                     for b in params["blocks"])
+        self.shared_attn = (_block(params["shared_attn"], device, dt)
+                            if cfg.block_pattern == "zamba2" else None)
         self.final_norm = nn.ParameterDict({
             k: _param(v, device) for k, v in params["final_norm"].items()})
         self.lm_head = (None if cfg.tie_embeddings
@@ -174,9 +230,66 @@ class Model(nn.Module):
             y = y + ll.mlp(p["shared"], h, cfg.cdtype)
         return x + y, aux
 
+    def _rwkv6_blocks(self, x, cache):
+        """The reference's ``rwkv6`` body: norm, time mix, residual, norm,
+        channel mix, residual; with a cache, each layer's shifts and wkv
+        state written back in place."""
+        cfg = self.cfg
+        for i, blk in enumerate(self.blocks):
+            tm_state = cm_state = None
+            if cache is not None:
+                c = cache["blocks"]
+                tm_state = {"tm_shift": c["tm_shift"][i], "wkv": c["wkv"][i]}
+                cm_state = {"cm_shift": c["cm_shift"][i]}
+            a, tm_new = ssm.rwkv6_time_mix(
+                blk["tm"], ll.rmsnorm(blk["ln1"], x, cfg.norm_eps,
+                                      fast=cfg.fast_norm), cfg,
+                state=tm_state)
+            x = x + a
+            m, cm_new = ssm.rwkv6_channel_mix(
+                blk["cm"], ll.rmsnorm(blk["ln2"], x, cfg.norm_eps,
+                                      fast=cfg.fast_norm), cfg,
+                state=cm_state)
+            x = x + m
+            if cache is not None:
+                for state, new in ((tm_state, tm_new), (cm_state, cm_new)):
+                    for k, v in new.items():
+                        state[k].copy_(v)
+        return x
+
+    def _zamba2_groups(self, x, positions, cache, cache_index):
+        """The reference's ``zamba2`` groups: M Mamba2 layers behind their
+        norms, then the shared attention block, the same weights in every
+        group and a KV cache of its own a group; with a cache, each Mamba2
+        layer's conv and ssm state written back in place."""
+        cfg = self.cfg
+        M = cfg.shared_attn_every
+        for g in range(len(self.blocks) // M):
+            for j in range(M):
+                lp = self.blocks[g * M + j]
+                state = None
+                if cache is not None:
+                    state = {k: v[g, j] for k, v in
+                             cache["blocks"]["mamba"].items()}
+                z = ll.rmsnorm(lp["ln"], x, cfg.norm_eps, fast=cfg.fast_norm)
+                out, new = ssm.mamba2_layer(lp["mamba"], z, cfg, state=state)
+                x = x + out
+                if cache is not None:
+                    for k, v in new.items():
+                        state[k].copy_(v)
+            kv = None if cache is None else {
+                k: v[g] for k, v in cache["blocks"]["attn"].items()}
+            x, _ = self._attn_block(self.shared_attn, x, positions, kv,
+                                    cache_index)
+        return x
+
     def _run_blocks(self, x, positions, cache, cache_index):
         """Returns (x, the summed load-balance loss, float32)."""
         aux = torch.zeros((), device=x.device)
+        if self.cfg.block_pattern == "rwkv6":
+            return self._rwkv6_blocks(x, cache), aux
+        if self.cfg.block_pattern == "zamba2":
+            return self._zamba2_groups(x, positions, cache, cache_index), aux
         for i, blk in enumerate(self.prefix):
             c = None if cache is None else cache["prefix"][i]
             x, _ = self._attn_block(blk, x, positions, c, cache_index)
@@ -220,25 +333,50 @@ class Model(nn.Module):
         return self._logits(x), cache
 
     def init_cache(self, B: int, S_max: int):
-        """The cache, zeros in ``cfg.dtype``, as the reference's: under
-        "blocks" k and v (L, B, S_max, KH, Dh), or for MLA the compressed
-        c_kv (L, B, S_max, r) and k_rope (L, B, S_max, dr); under "prefix"
-        one such dict, unstacked, for each of the ``first_dense`` blocks."""
+        """The cache, as the reference's: zeros, in ``cfg.dtype`` but for
+        the recurrent states, float32. Under "blocks" k and v (L, B, S_max,
+        KH, Dh), or for MLA the compressed c_kv (L, B, S_max, r) and k_rope
+        (L, B, S_max, dr); under "prefix" one such dict, unstacked, for
+        each of the ``first_dense`` blocks. ``rwkv6``: tm_shift and
+        cm_shift (L, B, d), wkv (L, B, H, hd, hd). ``zamba2``: under
+        "mamba" conv (G, M, B, K - 1, conv_dim) and ssm (G, M, B, H,
+        d_state, head_dim), under "attn" the shared block's k and v (G, B,
+        S_max, KH, Dh)."""
         cfg = self.cfg
+        dev = self.embed.device
+
+        def zeros(*shape, dtype=cfg.cdtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        kv = (cfg.num_kv_heads, cfg.head_dim)
+        if cfg.block_pattern == "rwkv6":
+            L, (H, hd) = len(self.blocks), ssm.rwkv6_dims(cfg)
+            return {"blocks": {
+                "tm_shift": zeros(L, B, cfg.d_model),
+                "cm_shift": zeros(L, B, cfg.d_model),
+                "wkv": zeros(L, B, H, hd, hd, dtype=torch.float32)}}
+        if cfg.block_pattern == "zamba2":
+            G, M = _groups(cfg)
+            _, H, conv_dim = ssm.mamba2_dims(cfg)
+            return {"blocks": {
+                "mamba": {"conv": zeros(G, M, B, cfg.conv_kernel - 1,
+                                        conv_dim),
+                          "ssm": zeros(G, M, B, H, cfg.ssm_state,
+                                       cfg.ssm_head_dim, dtype=torch.float32)},
+                "attn": {n: zeros(G, B, S_max, *kv) for n in ("k", "v")}}}
         if cfg.mla:
             tails = {"c_kv": (cfg.kv_lora_rank,),
                      "k_rope": (cfg.qk_rope_dim,)}
         else:
-            tails = {n: (cfg.num_kv_heads, cfg.head_dim) for n in ("k", "v")}
+            tails = {n: kv for n in ("k", "v")}
 
-        def caches(stack):
-            return {n: torch.zeros((*stack, B, S_max, *tail),
-                                   dtype=cfg.cdtype, device=self.embed.device)
+        def caches(*stack):
+            return {n: zeros(*stack, B, S_max, *tail)
                     for n, tail in tails.items()}
 
-        out = {"blocks": caches((len(self.blocks),))}
+        out = {"blocks": caches(len(self.blocks))}
         if self.prefix:
-            out["prefix"] = [caches(()) for _ in self.prefix]
+            out["prefix"] = [caches() for _ in self.prefix]
         return out
 
     def params(self):
@@ -250,6 +388,8 @@ class Model(nn.Module):
              "final_norm": dict(self.final_norm.items())}
         if self.prefix:
             p["prefix"] = tree(self.prefix)
+        if self.shared_attn is not None:
+            p["shared_attn"] = tree([self.shared_attn])[0]
         if self.lm_head is not None:
             p["lm_head"] = self.lm_head
         return p

@@ -1,11 +1,21 @@
 """The reference's side of the port's model tests, built once a process and
-shared by ``tests/test_torch_models.py``, ``tests/test_torch_moe.py`` and
-``tests/test_torch_serve_model.py``: an arch's SMOKE config, its ``Model``
-(MoE configs on the trivial (1, 1) mesh), its ``Model.init(seed=0)``
-parameters, those parameters carried across to the port, and its jitted
-decode step. Nothing here is written to: the tests only read these trees.
-Two context managers observe a run of both sides: ``xla_products`` and
-``routes``.
+shared by ``tests/test_torch_models.py``, ``tests/test_torch_moe.py``,
+``tests/test_torch_ssm.py`` and ``tests/test_torch_serve_model.py``: an
+arch's SMOKE config, its ``Model`` (MoE configs on the trivial (1, 1)
+mesh), its ``Model.init(seed=0)`` parameters, those parameters carried
+across to the port, and its jitted decode step. Nothing here is written
+to: the tests only read these trees. Two context managers observe a run of
+both sides: ``xla_products`` and ``routes``.
+
+``jax_caches_cleared``, imported by each of those test files, is a
+module-scoped autouse fixture: when the file's tests end it empties jax's
+compiled-function caches. jax keeps every jitted function's compiled
+entries in one least-recently-used list a process (8192 entries); the
+reference's models compile many shapes, and a later file of the same
+worker whose test reads a function's ``_cache_size()`` growing (the
+reference's ``PlanResult.traced``) would otherwise see an entry of that
+function evicted in place of a new one added. The jitted steps here then
+compile again in the next file that runs them.
 """
 import contextlib
 import functools
@@ -16,6 +26,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.compat import make_mesh
@@ -26,6 +37,15 @@ from repro_torch.models import convert, moe
 
 DENSE = ["smollm-360m", "yi-6b", "granite-20b", "phi3-mini-3.8b"]
 MOE = ["olmoe-1b-7b", "deepseek-v2-lite-16b"]
+SSM = ["rwkv6-3b", "zamba2-2.7b"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_caches_cleared():
+    """Empty jax's compiled-function caches when the module's tests end
+    (the module docstring says why)."""
+    yield
+    jax.clear_caches()
 
 
 def _config(arch: str, replace=()):

@@ -30,7 +30,7 @@ def test_package_has_the_slice_modules():
                  "flow.daemon", "launch.serve_planner", "launch.obs_report",
                  "launch.mesh", "core.predictor", "models.common",
                  "models.layers", "models.transformer", "models.convert",
-                 "models.moe",
+                 "models.moe", "models.gla", "models.ssm",
                  "configs", "configs.smollm_360m", "launch.serve_model",
                  "launch.serve"):
         assert "repro_torch." + name in mods

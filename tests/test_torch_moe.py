@@ -37,6 +37,7 @@ from repro_torch.models import convert, moe
 from repro_torch.models.transformer import Model, init_params
 
 from _model_cases import F32_ATOL
+from _model_reference import jax_caches_cleared  # noqa: F401 (autouse)
 from _model_reference import (MOE, port_params, ref_model, ref_params,
                               ref_step, routes, same_routes, xla_products)
 

@@ -10,7 +10,8 @@ bfloat16 tolerance of ``tests/_model_cases.py`` (a near-tie that the two
 computations' rounding can flip); the test then compares up to that step
 and says so in a warning. Any other parting fails. The MoE configs are
 served in float32 too, where every token and every expert choice must be
-the reference's.
+the reference's, and so are the SSM configs (``rwkv6-3b``,
+``zamba2-2.7b``): the same greedy tokens at every step.
 """
 import os
 
@@ -31,7 +32,8 @@ from repro.launch.serve_model import serve as ref_serve
 from repro_torch.launch.serve_model import serve
 
 from _model_cases import bf16_tolerance
-from _model_reference import (DENSE, MOE, port_params, ref_model,
+from _model_reference import jax_caches_cleared  # noqa: F401 (autouse)
+from _model_reference import (DENSE, MOE, SSM, port_params, ref_model,
                               ref_params, ref_step, routes, same_routes)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -124,6 +126,27 @@ def test_moe_greedy_tokens_match_reference_in_float32(arch, monkeypatch):
                                                - rcfg.first_dense)
 
 
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_greedy_tokens_match_reference_in_float32(arch, monkeypatch):
+    """The SSM family served by both packages with their SMOKE configs in
+    float32: the same greedy tokens at every step. The prefill is a
+    repeated decode on both sides, so serving runs ``gla_step``."""
+    import repro.launch.serve_model as ref_serving
+    import repro_torch.launch.serve_model as serving
+    for module in (ref_serving, serving):
+        monkeypatch.setattr(module, "get_config",
+                            lambda a, smoke=False, get=module.get_config:
+                            get(a, smoke).replace(dtype="float32"))
+    want = ref_serve(arch, smoke=True, batch=B, prompt_len=PROMPT,
+                     gen_tokens=GEN, params=ref_params(arch),
+                     quiet=True)["tokens"]
+    got = serve(arch, smoke=True, batch=B, prompt_len=PROMPT,
+                gen_tokens=GEN, params=port_params(arch), quiet=True,
+                device="cpu")["tokens"]
+    assert got.shape == (B, GEN)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_sampling_is_seeded():
     """At temperature > 0 the tokens come from a torch generator seeded with
     ``seed``: the same seed samples the same tokens."""
@@ -166,6 +189,18 @@ def test_cli_serves_the_moe_family_on_the_cpu():
             env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
         assert res.returncode == 0, res.stderr
         assert f"{arch}: generated 4x4 tokens" in res.stdout
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_cli_serves_the_ssm_family_on_the_cpu(arch):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_model", "--arch",
+         arch, "--device", "cpu", "--prompt-len", "4", "--tokens", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert f"{arch}: generated 4x4 tokens" in res.stdout
 
 
 def test_serve_shim_warns_and_reexports():
