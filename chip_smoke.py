@@ -83,7 +83,7 @@ Phases, each failing loudly (no phase's failure is caught):
    energies from CPU JAX): every plan valid, and each cell's mean energy
    over the seeds at most the reference's mean plus two standard errors
    of its seed spread;
-8. the dense, MoE and SSM model families
+8. the dense, MoE and SSM model families and the VLM and audio backbones
    (``repro_torch.launch.serve_model.serve``) at full width, weights drawn
    from seed 0 and held in bfloat16: ``smollm-360m`` (32 layers, d_model
    960), ``yi-6b`` (32 layers, d_model 4096), ``granite-20b`` (52 layers,
@@ -109,8 +109,24 @@ Phases, each failing loudly (no phase's failure is caught):
    and the shared block for ``zamba2-2.7b``) in float32 must agree on the
    card and the CPU within the float32 rule (the final recurrent states'
    differences printed), and, on the card, the chunked forward must agree
-   with the teacher-forced decode steps over the 48 served positions. No
-   kernel of the port runs on this path.
+   with the teacher-forced decode steps over the 48 served positions;
+   ``llama-3.2-vision-11b`` (40 layers in 8 groups of 5, each group
+   followed by a gated cross-attention sublayer over a patch cache of
+   4096 patches, and an MLP; served against the zero patch cache, as the
+   reference's ``serve`` serves it) and ``musicgen-large`` (48 layers fed
+   frame embeddings) are served the same way, their least time counting
+   the patch cache read once a step (its bytes, and those of the float32
+   copy of its keys that the attention makes, printed apart); the VLM's
+   first group (5 self blocks, the cross sublayer with its gate set
+   non-zero, the patch cache filled from seeded patches through the
+   group's ``wk``/``wv``) must agree on the card and the CPU within the
+   float32 rule's tolerance, held in float64 (float32's own rounding in
+   this group exceeds that tolerance; its numbers are printed beside),
+   and so must its forward over the patches and its teacher-forced
+   decode steps over the 48 served positions on the card;
+   ``musicgen-large``'s first 2 layers in float32 must agree on the card
+   and the CPU over the served prompt's embeddings. No kernel of the
+   port runs on this path.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
@@ -1147,7 +1163,8 @@ def host_gap(fn, reps: int):
 # phase 8's archs, each served this many times (the first cold)
 SERVED = (("smollm-360m", 2), ("yi-6b", 1), ("granite-20b", 1),
           ("olmoe-1b-7b", 1), ("deepseek-v2-lite-16b", 1),
-          ("rwkv6-3b", 1), ("zamba2-2.7b", 1))
+          ("rwkv6-3b", 1), ("zamba2-2.7b", 1),
+          ("llama-3.2-vision-11b", 1), ("musicgen-large", 1))
 
 
 class Routes:
@@ -1198,7 +1215,8 @@ def _leaves(tree):
 def step_bytes(model, routed):
     """Bytes of the parameters one decode step must read: each block's
     (the dense prefix's, attention, norms, the router, the shared expert,
-    the SSM layers', zamba2's shared attention block once) and the head,
+    the SSM layers', zamba2's shared attention block once, the VLM's
+    cross-attention groups) and the head,
     and of the routed experts the ``routed[i]`` distinct ones of MoE block
     i that the step's tokens went to; the bytes of every expert, which a
     dispatch over the whole (E, cap, d) slot buffer reads; and the bytes of
@@ -1209,7 +1227,7 @@ def step_bytes(model, routed):
               sum(_nbytes(w) for leaves in model.shared_attn.values()
                   for w in leaves.values()))
     moe_blocks = [b for b in model.blocks if "moe" in b]
-    for blk in [*model.prefix, *model.blocks]:
+    for blk in [*model.prefix, *model.blocks, *model.cross]:
         for part, leaves in blk.items():
             total += sum(_nbytes(w) for name, w in leaves.items()
                          if part != "moe" or name == "router")
@@ -1222,22 +1240,28 @@ def step_bytes(model, routed):
 
 
 def cache_bytes(cache):
-    """Bytes of a model's cache: (the attention KV cache's, the recurrent
+    """Bytes of a model's cache: (the attention KV cache's; the recurrent
     state's: rwkv6's token shifts and wkv state, zamba2's conv and SSM
-    states), which a decode step reads and writes once."""
-    blocks = cache["blocks"]
+    states, which a decode step reads and writes once; the VLM's patch
+    cache's, which a step reads once, all of it)."""
+    blocks = cache.get("blocks", {})
     state = blocks.get("mamba", blocks if "wkv" in blocks else {})
     state_b = sum(_nbytes(t) for t in _leaves(state))
-    return sum(_nbytes(t) for t in _leaves(cache)) - state_b, state_b
+    patch_b = sum(_nbytes(t) for t in _leaves(
+        cache.get("cross_groups", {}).get("cross_kv", {})))
+    total = sum(_nbytes(t) for t in _leaves(cache))
+    return total - state_b - patch_b, state_b, patch_b
 
 
 def serve_models(dev, gpu):
-    """Phase 8: the dense, MoE and SSM model families served at full width
-    through ``repro_torch.launch.serve_model.serve`` (batch 4, prompt 16,
-    32 greedy tokens, weights drawn from seed 0): ``smollm-360m`` twice
-    (cold, warm), ``yi-6b``, ``granite-20b``, ``olmoe-1b-7b``,
-    ``deepseek-v2-lite-16b``, ``rwkv6-3b`` and ``zamba2-2.7b`` once, tokens
-    of the right shape in the vocabulary. For each: decode ms per token
+    """Phase 8: the dense, MoE and SSM model families and the VLM and audio
+    backbones served at full width through
+    ``repro_torch.launch.serve_model.serve`` (batch 4, prompt 16, 32 greedy
+    tokens, weights drawn from seed 0): ``smollm-360m`` twice (cold,
+    warm), ``yi-6b``, ``granite-20b``, ``olmoe-1b-7b``,
+    ``deepseek-v2-lite-16b``, ``rwkv6-3b``, ``zamba2-2.7b``,
+    ``llama-3.2-vision-11b`` and ``musicgen-large`` once, tokens of the
+    right shape in the vocabulary. For each: decode ms per token
     step (CUDA events over 16 warm steps), tokens per second including
     prefill, peak memory, the share of a profiled step's device time in
     matrix products, and the step's least time: the bfloat16 parameters
@@ -1246,7 +1270,8 @@ def serve_models(dev, gpu):
     the distinct ones the step's tokens went to, counted from its
     routing), beside the bytes of every expert; for the SSM family, plus
     the float32 recurrent state read and written once, zamba2's shared
-    block counted once. ``smollm-360m``'s teacher-forced logits over the
+    block counted once; for the VLM, plus its patch cache read once.
+    ``smollm-360m``'s teacher-forced logits over the
     16 prompt positions, on the card and on the CPU from the same weights, must
     agree within the bfloat16 tolerance of ``tests/_model_cases.py``, and
     run in float32 within its ``f32_tolerance``: bfloat16's tolerance is
@@ -1259,7 +1284,8 @@ def serve_models(dev, gpu):
     between a k-th and a (k+1)-th router probability is printed. (A model
     drawn at 2 layers is no stand-in: a stacked leaf takes its fan-in from
     the layer axis, so its MoE blocks' matrices come 3-5x larger than the
-    served model's.) The SSM archs' own checks are ``ssm_checks``'s."""
+    served model's.) The SSM archs' own checks are ``ssm_checks``'s, the
+    VLM's ``vlm_checks``' and the audio model's ``audio_checks``'."""
     import numpy as np
     import torch
     from _model_cases import bf16_tolerance, f32_tolerance
@@ -1267,20 +1293,176 @@ def serve_models(dev, gpu):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve_model import serve
+    from repro_torch.launch.serve_model import frame_table, serve
     from repro_torch.models import moe
     from repro_torch.models.transformer import Model
 
     B, P, G = 4, 16, 32
 
-    def teacher_forced(model, toks):
-        cache = model.init_cache(B, P + G)
+    def teacher_forced(model, seq, cache=None):
+        """Logits of ``seq`` (tokens (B, S), or embeddings (B, S, d) for a
+        model fed them) one decode step a position, from ``cache`` or an
+        empty one."""
+        cache = model.init_cache(B, P + G) if cache is None else cache
+        key = "embeds" if model.cfg.embedding_inputs else "tokens"
         out = []
-        for t in range(toks.shape[1]):
+        for t in range(seq.shape[1]):
             logits, cache = model.decode_step(
-                cache, {"tokens": toks[:, t:t + 1]}, t)
+                cache, {key: seq[:, t:t + 1]}, t)
             out.append(logits)
         return torch.cat(out, 1), cache
+
+    def float32_pair(served, small, **keep):
+        """The served model cut to ``small`` (``keep``: how many entries of
+        each layer list of its parameters stay) as float32 models on the
+        card and on the CPU, and the CPU's weights' bytes."""
+        params = served.params()
+        for part, n in keep.items():
+            params[part] = params[part][:n]
+        card = Model(small, device=dev, params=params)
+        host = Model(small, device="cpu", params=card.params())
+        return card, host, sum(int(w.numel()) * 4 for w in host.parameters())
+
+    def vlm_checks(arch, cfg, served, prompt, seq):
+        """The served VLM's first group at full width: its M self blocks,
+        group 0's cross-attention sublayer with its gate set to a seeded
+        value in [0.5, 1.5) (the drawn gate is zero, which would make the
+        sublayer add nothing) and its MLP, and the head. Its patch cache is
+        filled from seeded patches (B, 4096, d) x 0.02 through the group's
+        ``wk`` and ``wv``. In float32 this group's own rounding reaches
+        about 0.001 of its logits (its residual stream grows to an RMS of
+        hundreds, its self-attention scores to hundreds): the float32
+        logits of the card and of the CPU each part from the float64 ones
+        by that much, past ``f32_tolerance(M + 1)``. So the group is held
+        in float64, where rounding sits far below that tolerance: the
+        teacher-forced logits over the prompt on the card and on the CPU
+        within ``f32_tolerance(M + 1)``; then on the card ``Model.forward``
+        over the patches against the teacher-forced ``decode_step`` over
+        the filled patch cache and the served sequence (48 positions),
+        within the same, and again over the patches x 0.2, where the cross
+        sublayer must move the logits (its gate at zero against set) by
+        more than the tolerance, so that the comparison sees it. The
+        float32 card against CPU, and each against float64, are printed
+        beside."""
+        M = cfg.cross_attn_every
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(4)
+        gate = 0.5 + float(torch.rand((), generator=gen))
+        params = served.params()
+        params["blocks"] = params["blocks"][:M]
+        params["cross"] = [dict(params["cross"][0])]
+        params["cross"][0]["cross"] = {**params["cross"][0]["cross"],
+                                       "gate": torch.tensor(gate)}
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        unit = torch.randn(B, cfg.num_patches, cfg.d_model, generator=gen,
+                           device=dev)
+
+        def cut(dtype, device, weights):
+            return Model(cfg.replace(num_layers=M, dtype=dtype,
+                                     param_dtype=dtype),
+                         device=device, params=weights)
+
+        def filled(model, patches):
+            cache = model.init_cache(B, P + G)
+            w = model.cross[0]["cross"]
+            p = patches.to(device=model.device, dtype=w["wk"].dtype)
+            for n in ("k", "v"):
+                cache["cross_groups"]["cross_kv"][n][0] = torch.einsum(
+                    "bpd,dhk->bphk", p, w[f"w{n}"])
+            return cache
+
+        tol = f32_tolerance(M + 1)
+        logits, size = {}, 0
+        for dtype in ("float64", "float32"):
+            card = cut(dtype, dev, params)
+            host = cut(dtype, "cpu", card.params())
+            size = sum(_nbytes(w) for w in host.parameters())
+            logits[dtype] = (
+                teacher_forced(card, prompt, filled(card, unit * 0.02))[0],
+                teacher_forced(host, prompt.cpu(),
+                               filled(host, unit * 0.02))[0])
+            del host
+            if dtype == "float64":
+                log(f"[serve {arch}] the served model's first group ({M} "
+                    f"self blocks, the cross sublayer, gate {gate:.4f}, "
+                    f"patch cache filled from {cfg.num_patches} seeded "
+                    f"patches) at full width: {size / 1e9:.2f} GB of "
+                    f"float64 weights on the CPU ({gpu})")
+                for scale in (0.02, 0.2):
+                    patches = unit * scale
+                    full, _ = card.forward({"tokens": seq,
+                                            "patches": patches})
+                    stepped, _ = teacher_forced(card, seq,
+                                                filled(card, patches))
+                    err = float((full - stepped).abs().max())
+                    gate_w = card.cross[0]["cross"]["gate"]
+                    gate_w.zero_()
+                    bare, _ = card.forward({"tokens": seq,
+                                            "patches": patches})
+                    gate_w.fill_(gate)
+                    moved = float((full - bare).abs().max())
+                    log(f"[serve {arch}] on the card, float64, the first "
+                        f"group, patches x {scale}: Model.forward over the "
+                        f"patches against teacher-forced decode_step over "
+                        f"the filled patch cache, {seq.shape[1]} positions: "
+                        f"max abs err {err:.3g}, tolerance {tol:.6f}; the "
+                        f"cross sublayer moves the logits by up to "
+                        f"{moved:.6f} (its gate at zero against set) "
+                        f"({gpu})")
+                    if err > tol:
+                        fail(f"[serve {arch}] forward and decode steps "
+                             f"differ by {err}, beyond the tolerance {tol}")
+                if moved <= tol:
+                    fail(f"[serve {arch}] the cross sublayer moves the "
+                         f"logits by {moved}, within the tolerance {tol}: "
+                         f"the comparison would not see it")
+            del card
+        (card64, host64), (card32, host32) = (
+            tuple(t.cpu().double() for t in pair)
+            for pair in (logits["float64"], logits["float32"]))
+        err = float((card64 - host64).abs().max())
+
+        def apart(a, b):
+            return float((a - b).abs().max())
+
+        log(f"[serve {arch}] card against CPU, the first group, "
+            f"teacher-forced logits over {P} positions: float64 max abs err "
+            f"{err:.3g}, tolerance {tol:.6f} (max |logit| "
+            f"{float(host64.abs().max()):.4f}); float32 (not held: its "
+            f"rounding here) {apart(card32, host32):.6f}, the card's "
+            f"float32 from float64 {apart(card32, card64):.6f}, the CPU's "
+            f"{apart(host32, host64):.6f} ({gpu})")
+        if err > tol:
+            fail(f"[serve {arch}] card and CPU float64 logits differ by "
+                 f"{err}, beyond the tolerance {tol}")
+
+    def audio_checks(arch, cfg, served, prompt):
+        """The served audio model's first 2 layers and its head at full
+        width in float32: the teacher-forced logits over the served
+        prompt's embeddings on the card and on the CPU within
+        ``f32_tolerance(2)``, and on the card its forward against those
+        decode steps within the same."""
+        small = cfg.replace(num_layers=2, dtype="float32")
+        card, host, size = float32_pair(served, small, blocks=2)
+        tol = f32_tolerance(small.num_layers)
+        got, _ = teacher_forced(card, prompt)
+        want, _ = teacher_forced(host, prompt.cpu())
+        err = float((got.cpu() - want).abs().max())
+        full, _ = card.forward({"embeds": prompt})
+        err_fwd = float((full - got).abs().max())
+        log(f"[serve {arch}] card against CPU in float32, the served "
+            f"model's first 2 layers at full width ({size / 1e9:.2f} GB of "
+            f"weights on the CPU), fed the served prompt's embeddings: "
+            f"teacher-forced logits over {P} positions max abs err "
+            f"{err:.6f}, float32 tolerance {tol:.6f} (max |logit| "
+            f"{float(want.abs().max()):.4f}); on the card, Model.forward "
+            f"against those decode steps {err_fwd:.6f} ({gpu})")
+        if max(err, err_fwd) > tol:
+            fail(f"[serve {arch}] float32 logits differ by "
+                 f"{max(err, err_fwd)} (card against CPU {err}, forward "
+                 f"against decode {err_fwd}), beyond the float32 tolerance "
+                 f"{tol}")
 
     def ssm_checks(arch, cfg, served, prompt, seq):
         """The served SSM model's leading layers at full width in float32
@@ -1297,11 +1479,7 @@ def serve_models(dev, gpu):
         zamba = cfg.block_pattern == "zamba2"
         n = cfg.shared_attn_every if zamba else 2
         small = cfg.replace(num_layers=n, dtype="float32")
-        params = served.params()
-        params["blocks"] = params["blocks"][:n]
-        card = Model(small, device=dev, params=params)
-        host = Model(small, device="cpu", params=card.params())
-        size = sum(int(w.numel()) * 4 for w in host.parameters())
+        card, host, size = float32_pair(served, small, blocks=n)
         tol = f32_tolerance(small.num_layers)
         got, got_cache = teacher_forced(card, prompt)
         want, want_cache = teacher_forced(host, prompt.cpu())
@@ -1350,11 +1528,8 @@ def serve_models(dev, gpu):
         head at full width, in float32, on the card and on the CPU: expert
         sets equal, logits within the float32 tolerance."""
         small = cfg.replace(num_layers=2, dtype="float32")
-        params = served.params()
-        params["blocks"] = params["blocks"][:2 - cfg.first_dense]
-        card = Model(small, device=dev, params=params)
-        host = Model(small, device="cpu", params=card.params())
-        size = sum(int(w.numel()) * 4 for w in host.parameters())
+        card, host, size = float32_pair(served, small,
+                                        blocks=2 - cfg.first_dense)
         for absorb in ((True, False) if cfg.mla else (True,)):
             c = small.replace(mla_absorb=absorb)
             with Routes(moe) as on_card:
@@ -1409,8 +1584,9 @@ def serve_models(dev, gpu):
                 f"as served; peak memory {peak / 2 ** 30:.3f} GiB "
                 f"({torch.cuda.max_memory_allocated(dev)} B) ({gpu})")
         model = Model(cfg, seed=0, device=dev)
-        prompt = torch.as_tensor(res["prompt"], dtype=torch.int32,
-                                 device=dev)
+        prompt = torch.as_tensor(res["prompt"], device=dev)
+        if not cfg.embedding_inputs:
+            prompt = prompt.to(torch.int32)
         logits, cache = teacher_forced(model, prompt)
         if logits.shape != (B, P, cfg.vocab_size) or \
                 not torch.isfinite(logits).all():
@@ -1456,7 +1632,9 @@ def serve_models(dev, gpu):
             del host, got32, want32
         # a warm decode step at position P, timed and profiled
         nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        step = lambda: model.decode_step(cache, {"tokens": nxt}, P)
+        feed = ({"embeds": frame_table(cfg, dev)[nxt.long()]}
+                if cfg.embedding_inputs else {"tokens": nxt})
+        step = lambda: model.decode_step(cache, feed, P)
         with Routes(moe) as routed:
             step()
         distinct = [int(torch.unique(e).numel()) for e, _ in routed.seen]
@@ -1471,11 +1649,14 @@ def serve_models(dev, gpu):
                    if e.device_type == DeviceType.CUDA)
         mm = sum(e.device_time_total for e in events
                  if e.key in ("aten::mm", "aten::bmm"))
+        copies = sum(e.device_time_total for e in events
+                     if e.key == "aten::copy_")
         dt = cfg.cdtype
         weights, experts, shared = step_bytes(model, distinct)
-        kv, state = cache_bytes(cache)
-        # the recurrent state is read and written once a step
-        bound_ms = (weights + 2 * state) / HBM_BYTES_PER_S * 1e3
+        kv, state, patch = cache_bytes(cache)
+        # the recurrent state is read and written once a step, the patch
+        # cache read once
+        bound_ms = (weights + 2 * state + patch) / HBM_BYTES_PER_S * 1e3
         routing = (f"; {distinct} distinct experts of {cfg.num_experts} "
                    f"routed to in its {len(distinct)} MoE layers (mean "
                    f"{sum(distinct) / len(distinct):.2f}); all experts "
@@ -1484,6 +1665,11 @@ def serve_models(dev, gpu):
                    f"reads" if cfg.moe else "")
         recurrent = (f"; the float32 recurrent state {state} B, read and "
                      f"written once, counted in it" if state else "")
+        # the attention upcasts k to float32 (models/layers.py:_sdpa): for
+        # the patch cache, a float32 copy of every group's keys a step
+        patch_note = (f"; the patch cache {patch} B, read once, counted in "
+                      f"it; the float32 copy of its keys the attention "
+                      f"makes {patch} B written a step" if patch else "")
         groups = (f"; the shared attention block {shared} B, counted "
                   f"once, {len(model.blocks) // cfg.shared_attn_every * shared}"
                   f" B if read in each of its "
@@ -1493,18 +1679,23 @@ def serve_models(dev, gpu):
             f"(CUDA events, 16 warm steps), {B * 1e3 / ms:.1f} tokens/s; "
             f"one profiled step: device busy {busy / 1e3:.3f} ms, of it "
             f"matrix products (aten::mm, aten::bmm) {mm / 1e3:.3f} ms, a "
-            f"share of {mm / max(busy, 1e-9):.3f}; least time "
-            f"{bound_ms:.4f} ms ({weights} B of parameters a step reads "
-            f"({dt} matrices), over HBM{recurrent}; the KV cache adds "
-            f"{kv} B){groups}{routing}, {bound_ms / ms:.3f} of it reached "
-            f"({gpu})")
+            f"share of {mm / max(busy, 1e-9):.3f}, copies (aten::copy_) "
+            f"{copies / 1e3:.3f} ms; least time {bound_ms:.4f} ms "
+            f"({weights} B of parameters a step reads ({dt} matrices), over "
+            f"HBM{recurrent}{patch_note}; the KV cache adds {kv} B){groups}"
+            f"{routing}, {bound_ms / ms:.3f} of it reached ({gpu})")
         del cache, logits
         if cfg.moe:
             card_against_cpu(arch, cfg, model, prompt)
+        seq = None if cfg.embedding_inputs else torch.cat([
+            prompt, torch.as_tensor(res["tokens"], dtype=torch.int32,
+                                    device=dev)], 1)
         if cfg.block_pattern != "attn":
-            seq = torch.cat([prompt, torch.as_tensor(
-                res["tokens"], dtype=torch.int32, device=dev)], 1)
             ssm_checks(arch, cfg, model, prompt, seq)
+        if cfg.cross_attn_every:
+            vlm_checks(arch, cfg, model, prompt, seq)
+        if cfg.embedding_inputs:
+            audio_checks(arch, cfg, model, prompt)
         del model
         torch.cuda.empty_cache()
         log(f"[serve {arch}] phase 8 for this arch took "

@@ -6,11 +6,13 @@ them (``logistic``, ``silu``, ``softplus``).
 Plain functions on nested dicts of tensors, as the reference's are, with
 the reference's numerics: RMSNorm statistics and RoPE in float32, float32
 attention scores under the -1e30 causal mask, softmax in float32, its
-weights cast to ``v``'s dtype. ``scaled_dot_product_attention`` would
-change both the numbers and the mask, so attention is written out with
-``torch.einsum``, as the reference leaves it to XLA. MLA (DeepSeek's
-multi-head latent attention) decodes from its compressed cache, absorbed
-or expanded. Cross-attention waits for its slice (ROADMAP Queue 1).
+weights cast to ``v``'s dtype. "float32" is a floor (``wide``): a float64
+model, which no reference config has, computes all of it in float64.
+``scaled_dot_product_attention`` would change both the numbers and the
+mask, so attention is written out with ``torch.einsum``, as the
+reference leaves it to XLA. MLA (DeepSeek's multi-head latent attention)
+decodes from its compressed cache, absorbed or expanded. Cross-attention (the VLM's) attends from the text to patch
+embeddings, or to their k and v cached, with no mask, behind a tanh gate.
 """
 from __future__ import annotations
 
@@ -19,6 +21,13 @@ import math
 import torch
 
 from repro_torch.models.common import Initializer, ModelConfig
+
+def wide(x):
+    """``x`` in float32, or as it is where it is wider (float64): the
+    dtype of the statistics, rotations and scores the reference computes
+    in float32."""
+    return x if x.dtype == torch.float64 else x.float()
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -32,12 +41,12 @@ def init_rmsnorm(ini: Initializer, path: str, dim: int, stack=()):
 def rmsnorm(p, x, eps: float, fast: bool = False):
     """RMSNorm with float32 statistics. ``fast=True`` keeps the normalized
     tensor in the input dtype (only the per-row statistic is float32)."""
-    var = x.float().square().mean(dim=-1, keepdim=True)
+    var = wide(x).square().mean(dim=-1, keepdim=True)
     r = torch.rsqrt(var + eps)
     if fast:
         return x * r.to(x.dtype) * p["scale"].to(x.dtype)
-    out = x.float() * r
-    return (out * p["scale"].float()).to(x.dtype)
+    out = wide(x) * r
+    return (out * p["scale"].to(out.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -45,18 +54,19 @@ def rmsnorm(p, x, eps: float, fast: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(dim: int, theta: float, device=None):
-    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+def rope_freqs(dim: int, theta: float, device=None, dtype=torch.float32):
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=dtype,
                                          device=device) / dim))
 
 
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                        # (d/2,)
-    ang = positions[..., :, None, None].float() * freqs   # (..., S, 1, d/2)
+    xw = wide(x)
+    freqs = rope_freqs(d, theta, x.device, xw.dtype)              # (d/2,)
+    ang = positions[..., :, None, None].to(xw.dtype) * freqs  # (.., S, 1, d/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = xw.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -75,7 +85,7 @@ def _sdpa(q, k, v, *, causal: bool, q_offset, scale: float):
     KH = k.shape[2]
     G = H // KH
     qg = q.reshape(B, Sq, KH, G, D)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    scores = torch.einsum("bskgd,btkd->bkgst", wide(qg), wide(k))
     scores = scores * scale
     if causal:
         qpos = q_offset + torch.arange(Sq, device=q.device)
@@ -149,6 +159,45 @@ def attention(p, x, cfg: ModelConfig, *, positions, cache=None,
 
 
 # ---------------------------------------------------------------------------
+# Cross-attention (VLM): queries from the text, k and v from patch embeddings
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(ini: Initializer, path: str, cfg: ModelConfig,
+                         stack=()):
+    """The projections, as self-attention's, and the scalar ``gate``,
+    zeros: a freshly drawn cross-attention adds nothing."""
+    d, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": ini.param(f"{path}/wq", (*stack, d, H, Dh)),
+        "wk": ini.param(f"{path}/wk", (*stack, d, KH, Dh)),
+        "wv": ini.param(f"{path}/wv", (*stack, d, KH, Dh)),
+        "wo": ini.param(f"{path}/wo", (*stack, H, Dh, d),
+                        scale=1.0 / math.sqrt(H * Dh)),
+        "gate": ini.param(f"{path}/gate", stack, init="zeros"),
+    }
+
+
+def cross_attention(p, x, patches, cfg: ModelConfig, *, kv_cache=None):
+    """``x`` (B, S, d) attends to ``patches`` (B, P, d), the precomputed
+    patch embeddings (the vision frontend is a stub), or, where
+    ``kv_cache`` is given (decode), to its k and v (B, P, KH, Dh) over the
+    patches, cast to the compute dtype. No mask; queries chunked by
+    ``cfg.attn_chunk``. The output is scaled by tanh(gate), the gate in
+    the compute dtype."""
+    dt = cfg.cdtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    if kv_cache is not None:
+        k, v = kv_cache["k"].to(dt), kv_cache["v"].to(dt)
+    else:
+        k = torch.einsum("bpd,dhk->bphk", patches, p["wk"].to(dt))
+        v = torch.einsum("bpd,dhk->bphk", patches, p["wv"].to(dt))
+    out = attention_core(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    return out * torch.tanh(p["gate"].to(dt))
+
+
+# ---------------------------------------------------------------------------
 # MLA — multi-head latent attention (DeepSeek V2)
 # ---------------------------------------------------------------------------
 
@@ -174,7 +223,7 @@ def init_mla(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
 def _scores(a, b, spec):
     """``torch.einsum(spec, a, b)`` with float32 scores from inputs of the
     compute dtype (the reference's ``preferred_element_type=float32``)."""
-    return torch.einsum(spec, a.float(), b.float())
+    return torch.einsum(spec, wide(a), wide(b))
 
 
 def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,

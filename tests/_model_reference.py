@@ -1,6 +1,7 @@
 """The reference's side of the port's model tests, built once a process and
 shared by ``tests/test_torch_models.py``, ``tests/test_torch_moe.py``,
-``tests/test_torch_ssm.py`` and ``tests/test_torch_serve_model.py``: an
+``tests/test_torch_ssm.py``, ``tests/test_torch_multimodal.py`` and
+``tests/test_torch_serve_model.py``: an
 arch's SMOKE config, its ``Model`` (MoE configs on the trivial (1, 1)
 mesh), its ``Model.init(seed=0)`` parameters, those parameters carried
 across to the port, and its jitted decode step. Nothing here is written
@@ -38,6 +39,8 @@ from repro_torch.models import convert, moe
 DENSE = ["smollm-360m", "yi-6b", "granite-20b", "phi3-mini-3.8b"]
 MOE = ["olmoe-1b-7b", "deepseek-v2-lite-16b"]
 SSM = ["rwkv6-3b", "zamba2-2.7b"]
+VLM = ["llama-3.2-vision-11b"]
+AUDIO = ["musicgen-large"]
 
 
 @pytest.fixture(scope="module", autouse=True)

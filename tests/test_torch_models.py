@@ -32,8 +32,8 @@ from repro_torch.models.transformer import Model, init_params
 
 from _model_cases import F32_ATOL, tolerance
 from _model_reference import jax_caches_cleared  # noqa: F401 (autouse)
-from _model_reference import (DENSE, MOE, SSM, port_params, ref_model,
-                              ref_params, ref_step)
+from _model_reference import (DENSE, port_params, ref_model, ref_params,
+                              ref_step)
 
 # the teacher-forced cache holds 16 positions, as the serving test's
 # (tests/test_torch_serve_model.py) does, so the two share one jitted step
@@ -172,14 +172,30 @@ def test_model_runs_on_the_card_unless_asked_for_the_cpu():
             build(cfg)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if a not in DENSE + MOE + SSM])
-def test_non_dense_arch_raises(arch):
-    """The two architectures outside the dense, MoE and SSM families (the
-    VLM and the audio model) wait for a slice of their own: building their
-    model raises and names the ROADMAP item."""
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_decodes_on_the_cpu(arch):
+    """Every architecture builds on the CPU from its own init and takes one
+    ``decode_step``, fed a token or, for the audio model, an embedding:
+    finite logits of the vocabulary's width, and the step writes the
+    cache."""
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    model = Model(cfg, device="cpu")
+    cache = model.init_cache(2, 4)
+    before = [t.clone() for t in jax.tree.leaves(cache)]
+    rng = np.random.default_rng(0)
+    batch = ({"embeds": torch.from_numpy(rng.normal(size=(
+        2, 1, cfg.d_model)).astype(np.float32))} if cfg.embedding_inputs
+        else {"tokens": torch.from_numpy(tokens(cfg.vocab_size, S=1))})
+    logits, cache = model.decode_step(cache, batch, 0)
+    assert logits.shape == (2, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert any(not torch.equal(a, b)
+               for a, b in zip(before, jax.tree.leaves(cache)))
+
+
+def test_unknown_block_pattern_raises():
+    cfg = get_config("yi-6b", smoke=True).replace(block_pattern="mamba2")
+    with pytest.raises(ValueError, match="block_pattern"):
         Model(cfg, device="cpu")
 
 

@@ -11,7 +11,9 @@ computations' rounding can flip); the test then compares up to that step
 and says so in a warning. Any other parting fails. The MoE configs are
 served in float32 too, where every token and every expert choice must be
 the reference's, and so are the SSM configs (``rwkv6-3b``,
-``zamba2-2.7b``): the same greedy tokens at every step.
+``zamba2-2.7b``) and the VLM and audio backbones
+(``llama-3.2-vision-11b``, ``musicgen-large``): the same greedy tokens at
+every step.
 """
 import os
 
@@ -33,8 +35,9 @@ from repro_torch.launch.serve_model import serve
 
 from _model_cases import bf16_tolerance
 from _model_reference import jax_caches_cleared  # noqa: F401 (autouse)
-from _model_reference import (DENSE, MOE, SSM, port_params, ref_model,
-                              ref_params, ref_step, routes, same_routes)
+from _model_reference import (AUDIO, DENSE, MOE, SSM, VLM, port_params,
+                              ref_model, ref_params, ref_step, routes,
+                              same_routes)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, PROMPT, GEN = 2, 8, 8
@@ -147,6 +150,43 @@ def test_ssm_greedy_tokens_match_reference_in_float32(arch, monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("arch", VLM + AUDIO)
+def test_multimodal_greedy_tokens_match_reference_in_float32(arch,
+                                                             monkeypatch):
+    """The VLM and audio backbones served by both packages with their SMOKE
+    configs in float32: the same greedy tokens at every step. The VLM
+    decodes against the zero patch cache on both sides (neither ``serve``
+    supplies patches). The audio model's prompt is the reference's numpy
+    draw of embeddings, and each generated token is fed as its row of the
+    reference's frame table, ``jax.random.normal(PRNGKey(7), (V, d)) *
+    0.02``, handed to the port through ``frames`` (torch cannot draw
+    threefry's numbers)."""
+    import repro.launch.serve_model as ref_serving
+    import repro_torch.launch.serve_model as serving
+    for module in (ref_serving, serving):
+        monkeypatch.setattr(module, "get_config",
+                            lambda a, smoke=False, get=module.get_config:
+                            get(a, smoke).replace(dtype="float32"))
+    rcfg, _ = ref_model(arch)
+    frames = None
+    if rcfg.embedding_inputs:
+        frames = np.array(jax.random.normal(
+            jax.random.PRNGKey(7), (rcfg.vocab_size, rcfg.d_model)) * 0.02)
+    want = ref_serve(arch, smoke=True, batch=B, prompt_len=PROMPT,
+                     gen_tokens=GEN, params=ref_params(arch),
+                     quiet=True)["tokens"]
+    got = serve(arch, smoke=True, batch=B, prompt_len=PROMPT,
+                gen_tokens=GEN, params=port_params(arch), quiet=True,
+                device="cpu", frames=frames)
+    rng = np.random.default_rng(0)
+    prompt = (rng.normal(size=(B, PROMPT, rcfg.d_model)).astype(np.float32)
+              * 0.02 if rcfg.embedding_inputs else
+              rng.integers(0, rcfg.vocab_size, size=(B, PROMPT)))
+    np.testing.assert_array_equal(got["prompt"], prompt)
+    assert got["tokens"].shape == (B, GEN)
+    np.testing.assert_array_equal(got["tokens"], want)
+
+
 def test_sampling_is_seeded():
     """At temperature > 0 the tokens come from a torch generator seeded with
     ``seed``: the same seed samples the same tokens."""
@@ -193,6 +233,18 @@ def test_cli_serves_the_moe_family_on_the_cpu():
 
 @pytest.mark.parametrize("arch", SSM)
 def test_cli_serves_the_ssm_family_on_the_cpu(arch):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_model", "--arch",
+         arch, "--device", "cpu", "--prompt-len", "4", "--tokens", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert f"{arch}: generated 4x4 tokens" in res.stdout
+
+
+@pytest.mark.parametrize("arch", VLM + AUDIO)
+def test_cli_serves_the_multimodal_backbones_on_the_cpu(arch):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     res = subprocess.run(

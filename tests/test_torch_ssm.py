@@ -428,7 +428,7 @@ def test_converter_round_trip(arch, dtype):
 def test_unstack_takes_the_group_axes_and_the_converter_checks_them():
     """``unstack`` over (G, M) lists the G * M layers in order; the
     converter refuses a zamba2 tree whose groups do not make the config's
-    layers, and a part no ported model has."""
+    layers, and a part no model has."""
     t = torch.arange(2 * 3 * 4).reshape(2, 3, 4)
     parts = common.unstack({"w": t}, (2, 3))
     assert [int(p["w"][0]) for p in parts] == [0, 4, 8, 12, 16, 20]
@@ -437,5 +437,5 @@ def test_unstack_takes_the_group_axes_and_the_converter_checks_them():
     ref = jax.tree.map(np.array, ref_params("zamba2-2.7b"))
     with pytest.raises(ValueError, match="groups"):
         convert.from_reference(ref, 6)
-    with pytest.raises(NotImplementedError, match="cross"):
-        convert.from_reference({**ref, "cross": {}}, 4)
+    with pytest.raises(NotImplementedError, match="vision_tower"):
+        convert.from_reference({**ref, "vision_tower": {}}, 4)
