@@ -117,15 +117,33 @@ Phases, each failing loudly (no phase's failure is caught):
    frame embeddings) are served the same way, their least time counting
    the patch cache read once a step (its bytes, and those of the float32
    copy of its keys that the attention makes, printed apart); the VLM's
-   first group (5 self blocks, the cross sublayer with its gate set
-   non-zero, the patch cache filled from seeded patches through the
-   group's ``wk``/``wv``) must agree on the card and the CPU within the
-   float32 rule's tolerance, held in float64 (float32's own rounding in
-   this group exceeds that tolerance; its numbers are printed beside),
+   first group (cut to 2 of its 5 self blocks; the cross
+   sublayer with its gate set non-zero, the patch cache filled from
+   seeded patches through the group's ``wk``/``wv``) must agree on the
+   card and the CPU within the float32 rule's tolerance, held in
+   float64 (float32's own rounding in this group exceeds that
+   tolerance; its numbers are printed beside),
    and so must its forward over the patches and its teacher-forced
    decode steps over the 48 served positions on the card;
    ``musicgen-large``'s first 2 layers in float32 must agree on the card
    and the CPU over the served prompt's embeddings. No kernel of the
+   port runs on this path;
+9. training (``repro_torch.launch.train.train``; ``train_models``):
+   ``smollm-360m`` at full width and depth, seed-0 weights, batch 8 x
+   sequence 2048, 20 steps at lr 1e-3, remat "full", deterministic
+   algorithms: every loss and gradient norm finite and the loss falling;
+   a warm step's ms and tokens/s, device busy in a profiled step with the
+   matrix products' share, the float32 score products and the AdamW
+   update timed apart, peak memory, the step against its least time;
+   the first 4 layers at full width resumed after an injected preemption
+   at step 6 from the step-4 checkpoint, params and optimizer state bit
+   for bit equal to an uninterrupted run's, each save and restore timed;
+   the first 2 layers of ``smollm-360m``, ``olmoe-1b-7b`` and
+   ``rwkv6-3b`` in float32 on the card and the CPU against float64: the
+   loss within ``f32_tolerance(2)``, every gradient leaf within
+   ``card_grad_rtol``, olmoe's expert sets equal, one train step's params
+   for smollm within ``first_step_error``; and the int8 ring over 8
+   replicas on the card bit for bit against the CPU's. No kernel of the
    port runs on this path.
 
 The inputs of one kernel call of each session are captured, checked
@@ -1324,7 +1342,8 @@ def serve_models(dev, gpu):
         return card, host, sum(int(w.numel()) * 4 for w in host.parameters())
 
     def vlm_checks(arch, cfg, served, prompt, seq):
-        """The served VLM's first group at full width: its M self blocks,
+        """The served VLM's first group at full width, cut to its first M =
+        2 self blocks (of 5; the cut keeps the whole run under 900 s),
         group 0's cross-attention sublayer with its gate set to a seeded
         value in [0.5, 1.5) (the drawn gate is zero, which would make the
         sublayer add nothing) and its MLP, and the head. Its patch cache is
@@ -1344,7 +1363,7 @@ def serve_models(dev, gpu):
         more than the tolerance, so that the comparison sees it. The
         float32 card against CPU, and each against float64, are printed
         beside."""
-        M = cfg.cross_attn_every
+        M = 2
         gen = torch.Generator(device="cpu")
         gen.manual_seed(4)
         gate = 0.5 + float(torch.rand((), generator=gen))
@@ -1359,8 +1378,8 @@ def serve_models(dev, gpu):
                            device=dev)
 
         def cut(dtype, device, weights):
-            return Model(cfg.replace(num_layers=M, dtype=dtype,
-                                     param_dtype=dtype),
+            return Model(cfg.replace(num_layers=M, cross_attn_every=M,
+                                     dtype=dtype, param_dtype=dtype),
                          device=device, params=weights)
 
         def filled(model, patches):
@@ -1739,6 +1758,461 @@ def quality(dev, gpu):
             missed.append(cell)
     if missed:
         fail(f"[quality] the rule is missed in {missed}")
+
+
+# --- phase 9: training -------------------------------------------------------
+
+# 9a's cell: smollm-360m at full width and depth, batch 8 x sequence 2048
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "smollm-360m", 8, 2048, 20
+BF16_OPS_PER_S = 989e12      # bfloat16 dense on the tensor cores
+# 9c: the first 2 layers of one arch a distinct backward (dense, MoE
+# dispatch with its load-balance loss, the chunked RWKV6 recurrence), at
+# (batch, sequence)
+CARD_VS_CPU = (("smollm-360m", 2, 256), ("olmoe-1b-7b", 2, 64),
+               ("rwkv6-3b", 2, 64))
+
+
+def train_flops(cfg, B, S, n_params):
+    """(model FLOPs of one training step, of them the float32 score
+    products): 6 N T for the parameters' products, forward and backward
+    (the tied head counted in N), plus the attention's two S x S products
+    a layer, counted whole (the port computes every score, then masks),
+    three times (the forward and the two products of each one's backward).
+    The score products q k^T and the two of their backward take float32
+    operands (``models/layers.py:_sdpa``)."""
+    product = 2 * B * cfg.num_heads * S * S * cfg.head_dim
+    return (6 * n_params * B * S + 2 * 3 * product * cfg.num_layers,
+            3 * product * cfg.num_layers)
+
+
+def train_models(dev, gpu):
+    """Phase 9: training (``repro_torch.launch.train.train``), in four
+    parts: ``train_smollm`` (a), ``train_resume`` (b), ``train_card_vs_cpu``
+    (c) and ``train_ring`` (d)."""
+    train_smollm(dev, gpu)
+    train_resume(dev, gpu)
+    train_card_vs_cpu(dev, gpu)
+    train_ring(dev, gpu)
+
+
+def product_census():
+    """A ``TorchDispatchMode`` that, while active, counts the matrix
+    products that run, by (op, dtype, operand shapes and strides), in its
+    ``calls``."""
+    import collections
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    products = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+    class Census(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in products:
+                a, b = args[0], args[1]
+                self.calls[(func, a.dtype, tuple(a.shape), a.stride(),
+                            tuple(b.shape), b.stride())] += 1
+            return func(*args, **(kwargs or {}))
+    return Census()
+
+
+def train_smollm(dev, gpu):
+    """Phase 9a: ``smollm-360m`` at full width and depth, weights from seed
+    0, batch 8 x sequence 2048, 20 steps at lr 1e-3, remat "full", through
+    ``train``: every loss and gradient norm finite, the mean loss of the
+    last 5 steps below that of the first 5. The trainer's own steps are
+    measured, its ``make_train_step`` wrapped: each step timed with CUDA
+    events (a warm step: the median of steps 2-15), step 16 run under a
+    dispatch census of its matrix products (the float32 ones then timed
+    apart at their shapes and counts), step 18 under the profiler (device
+    busy, the matrix products' share, the top kernels and ops). Then the
+    AdamW update timed apart on the trained state, under deterministic
+    algorithms as the trainer runs it and without, a warm step without
+    them, peak memory, and the step's least time."""
+    import contextlib
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import deterministic, train
+    from repro_torch.models.common import param_count
+    from repro_torch.optim import adamw
+
+    B, S, STEPS = TRAIN_B, TRAIN_S, TRAIN_STEPS
+    CENSUS_AT, PROFILE_AT = 16, 18
+    cfg = get_config(TRAIN_ARCH)
+    census = product_census()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    timed, made = [], {}
+    orig = train_mod.make_train_step
+
+    def measured(model, opt_cfg, grad_accum=1):
+        step = orig(model, opt_cfg, grad_accum)
+        made.update(model=model, opt_cfg=opt_cfg, step=step)
+
+        def run(state, batch):
+            i = len(timed)
+            ctx = {CENSUS_AT: census, PROFILE_AT: prof}.get(
+                i, contextlib.nullcontext())
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            with ctx:
+                a.record()
+                out = step(state, batch)
+                b.record()
+                if i == PROFILE_AT:
+                    torch.cuda.synchronize()
+            timed.append((a, b))
+            return out
+        return run
+
+    def operand(shape, stride, dtype):
+        size = 1 + sum((n - 1) * s for n, s in zip(shape, stride))
+        return torch.randn(size, device=dev).to(dtype).as_strided(shape,
+                                                                  stride)
+
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_mod.make_train_step = measured
+    try:
+        out = train(TRAIN_ARCH, smoke=False, steps=STEPS, batch=B, seq=S,
+                    lr=1e-3, seed=0, device=dev, quiet=True)
+    finally:
+        train_mod.make_train_step = orig
+    train_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses, norms = out["losses"], out["grad_norms"]
+    if len(losses) != STEPS or not np.isfinite(losses + norms).all():
+        fail(f"[train {TRAIN_ARCH}] losses {losses} grad norms {norms}: "
+             f"not {STEPS} finite steps")
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"[train {TRAIN_ARCH}] {STEPS} steps of {B} x {S} tokens through "
+        f"train() in {train_s:.2f} s (the first step's warmup included): "
+        f"loss {losses[0]:.4f} at step 0, {losses[-1]:.4f} at step "
+        f"{STEPS - 1}; mean of the first 5 {first5:.4f}, of the last 5 "
+        f"{last5:.4f}; grad norms {norms[0]:.3f} .. {norms[-1]:.3f}; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB ({peak} B) ({gpu})")
+    if not last5 < first5:
+        fail(f"[train {TRAIN_ARCH}] the loss does not fall: mean of the "
+             f"last 5 steps {last5} against the first 5 {first5}")
+    step_ms = [a.elapsed_time(b) for a, b in timed]
+    ms = statistics.median(step_ms[2:CENSUS_AT])
+    model, opt_cfg, state = made["model"], made["opt_cfg"], out["opt_state"]
+    del out
+    def update():
+        # the update's work does not depend on the values: the parameters
+        # stand in for gradients of their shapes
+        adamw.update(model.params(), model.params(), state, opt_cfg)
+
+    with deterministic(dev):          # as the trainer runs it
+        adamw_ms = time_ms(update, reps=5)
+    adamw_free_ms = time_ms(update, reps=5)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in TokenPipeline(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)).batch_at(STEPS).items()}
+    # a step without deterministic algorithms: what exact resume costs
+    free_ms = time_ms(lambda: made["step"](state, batch), reps=1)
+    events = prof.key_averages()
+    busy = max(sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA) / 1e3, 1e-9)
+    mm = sum(e.device_time_total for e in events
+             if e.key in ("aten::mm", "aten::bmm")) / 1e3
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)[:8]
+    # the ops that launched them, by the device time of their own kernels
+    ops = sorted((e for e in events if e.device_type != DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    f32_ms, f32_calls, f32_shapes = 0.0, 0, 0
+    for (op, dtype, sa, ta, sb, tb), n in census.calls.items():
+        if dtype != torch.float32:
+            continue
+        a, b = operand(sa, ta, dtype), operand(sb, tb, dtype)
+        f32_ms += n * time_ms(lambda: op(a, b), reps=3)
+        f32_calls += n
+        f32_shapes += 1
+        del a, b
+    n_params = param_count(model.params())
+    flops, f32_flops = train_flops(cfg, B, S, n_params)
+    ops_ms = ((flops - f32_flops) / BF16_OPS_PER_S
+              + f32_flops / FP32_OPS_PER_S) * 1e3
+    adamw_bytes = 4 * n_params * 7      # params r+w, grad r, mu, nu r+w
+    adamw_bound = adamw_bytes / HBM_BYTES_PER_S * 1e3
+    least = max(ops_ms, adamw_bound)
+    log(f"[train {TRAIN_ARCH}] a warm step: {ms:.2f} ms (CUDA events, the "
+        f"median of steps 2-{CENSUS_AT - 1}; {min(step_ms[2:CENSUS_AT]):.2f} "
+        f"to {max(step_ms[2:CENSUS_AT]):.2f}), {B * S * 1e3 / ms:.0f} "
+        f"tokens/s; step 0 {step_ms[0]:.2f} ms; one profiled step: "
+        f"device busy {busy:.2f} ms, of it matrix products (aten::mm, "
+        f"aten::bmm) {mm:.2f} ms, a share of {mm / busy:.3f}; the float32 "
+        f"products of a step ({f32_calls} calls of {f32_shapes} shapes, "
+        f"the scores q k^T and their backward) timed apart {f32_ms:.2f} ms, "
+        f"{f32_ms / busy:.3f} of busy; the AdamW update timed apart "
+        f"{adamw_ms:.2f} ms as the trainer runs it, {adamw_ms / busy:.3f} of "
+        f"busy; without deterministic algorithms the update takes "
+        f"{adamw_free_ms:.2f} ms and a warm step {free_ms:.2f} ms ({gpu})")
+    log(f"[train {TRAIN_ARCH}] least time {least:.2f} ms: {n_params} "
+        f"parameters, {flops / 1e12:.2f} TFLOP a step, {f32_flops / 1e12:.2f} "
+        f"of them float32 score products at {FP32_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s, the rest at {BF16_OPS_PER_S / 1e12:.0f} bfloat16: "
+        f"{ops_ms:.2f} ms; the AdamW update's {adamw_bytes} B over HBM "
+        f"{adamw_bound:.2f} ms; the warm step is {ms / least:.2f} times "
+        f"it ({least / ms:.3f} of the bound reached) ({gpu})")
+    log(f"[train {TRAIN_ARCH}] the profiled step's top kernels: " + "; ".join(
+        f"{e.key[:70]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+        for e in kernels))
+    log(f"[train {TRAIN_ARCH}] the profiled step's top ops by their own "
+        f"kernels' device time: " + "; ".join(
+            f"{e.key} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+            for e in ops))
+    del model, made, state, batch, prof, events
+    torch.cuda.empty_cache()
+
+
+def train_resume(dev, gpu):
+    """Phase 9b: ``smollm-360m`` at full width cut to its first 4 layers
+    (the seed-0 draw of the whole model, cut: drawn at 4 layers, its
+    stacked leaves would take a fan-in of 4), 8 steps of batch 8 x 2048
+    with a checkpoint every 4: a run that dies at step 6 and resumes from
+    step 4 must end with params and optimizer state equal bit for bit to
+    an uninterrupted run; each save's and restore's seconds and bytes. The
+    checkpoints go to a temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import flatten, leaves
+
+    B, S = TRAIN_B, TRAIN_S
+    made = []
+
+    class Recorded(train_mod.Checkpointer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    params = init_params(get_config(TRAIN_ARCH), seed=0, device=dev,
+                         dtype=torch.float32)
+    params["blocks"] = params["blocks"][:4]
+    kw = dict(arch=TRAIN_ARCH, smoke=False, steps=8, batch=B, seq=S,
+              lr=1e-3, ckpt_every=4, seed=0, device=dev, quiet=True,
+              config_overrides={"num_layers": 4}, params=params)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    orig, train_mod.Checkpointer = train_mod.Checkpointer, Recorded
+    try:
+        t0 = time.monotonic()
+        whole = train(**kw)
+        try:
+            train(ckpt_dir=tmp, die_at_step=6, **kw)
+        except RuntimeError as e:
+            if "injected preemption" not in str(e):
+                raise
+        else:
+            fail("[train resume] the run did not die at step 6")
+        resumed = train(ckpt_dir=tmp, **kw)
+        resume_s = time.monotonic() - t0
+    finally:
+        train_mod.Checkpointer = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+    if resumed["steps_run"] != 4:
+        fail(f"[train resume] {resumed['steps_run']} steps after the "
+             f"resume, expected 4")
+    unequal = []
+    for tree in ("params", "opt_state"):
+        for (k, a), b in zip(flatten(whole[tree]), leaves(resumed[tree])):
+            if not torch.equal(a, b):
+                unequal.append((f"{tree}/{k}", float(
+                    (a.double() - b.double()).abs().max())))
+    ck_log = [e for c in made for e in c.log]
+    log(f"[train resume] full width, 4 layers, {B} x {S} tokens, 8 steps, a "
+        f"checkpoint every 4: died at step 6, resumed from step "
+        f"{ck_log[1]['step'] if len(ck_log) > 1 else None}; "
+        + "; ".join(f"{e['op']} step {e['step']}: {e['bytes']} B in "
+                    f"{e['seconds']:.3f} s"
+                    + (f" (host copy {e['copy_seconds']:.3f} s)"
+                       if e["op"] == "save" else "") for e in ck_log)
+        + f"; the three runs {resume_s:.1f} s; losses after the resume "
+        f"{resumed['losses']} against {whole['losses'][4:]} ({gpu})")
+    if unequal:
+        fail(f"[train resume] {len(unequal)} leaves of the resumed run "
+             f"differ from the uninterrupted run's: {unequal[:5]}")
+    log(f"[train resume] params and optimizer state of the resumed run "
+        f"equal bit for bit to the uninterrupted run's "
+        f"({len(leaves(whole['params']))} + "
+        f"{len(leaves(whole['opt_state']))} leaves)")
+    del whole, resumed
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(dev, gpu):
+    """Phase 9c: the first 2 layers of ``smollm-360m``, ``olmoe-1b-7b`` and
+    ``rwkv6-3b`` (one distinct backward each: dense, MoE dispatch with its
+    load-balance loss, the chunked RWKV6 recurrence), drawn whole from seed
+    0 and cut, in float32 on the card (as the trainer runs it, under
+    deterministic algorithms) and on the CPU, and in float64 on the card
+    from the same weights (the gradient to the precision that matters):
+    the float32 losses within ``f32_tolerance(2)`` of each other; every
+    float32 gradient leaf of the card within ``card_grad_rtol`` of its
+    largest from the float64 one, a rule the CPU's own float32 error
+    sets (``tests/_model_cases.py``); olmoe's expert sets equal on the
+    three; for smollm one ``make_train_step`` on
+    each float32 side, the params within ``first_step_error``'s bound at
+    the gradients' allowance."""
+    import numpy as np
+    import torch
+    from _model_cases import (card_grad_rtol, f32_tolerance,
+                              first_step_error, grad_error)
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten, leaves
+
+    for arch, b9, s9 in CARD_VS_CPU:
+        t0 = time.monotonic()
+        full = get_config(arch)
+        small = full.replace(num_layers=2, dtype="float32")
+        params = init_params(full, seed=0, device=dev, dtype=torch.float32)
+        params["blocks"] = params["blocks"][:2]
+        card = Model(small, device=dev, params=params, trainable=True)
+        del params
+        torch.cuda.empty_cache()
+        host = Model(small, device="cpu", params=card.params(),
+                     trainable=True)
+        exact = Model(small.replace(dtype="float64", param_dtype="float64"),
+                      device=dev, params=card.params(), trainable=True)
+        size = sum(_nbytes(w) for w in host.parameters())
+        rng = np.random.default_rng(1)
+        labels = rng.integers(0, full.vocab_size, (b9, s9)).astype(np.int32)
+        labels[0, :3] = -1
+        batch = {"tokens": rng.integers(0, full.vocab_size, (b9, s9)).astype(
+            np.int32), "labels": labels}
+        got = {}
+        for side, m in (("card", card), ("cpu", host), ("float64", exact)):
+            with deterministic(m.device), Routes(moe) as routed:
+                loss, _ = m.loss(batch)
+                grads = torch.autograd.grad(loss, leaves(m.params()))
+            # compared on the card, in float64
+            got[side] = (float(loss.detach()),
+                         [g.to(dev, torch.float64) for g in grads],
+                         [e.cpu() for e, _ in routed.seen])
+            del grads
+        del exact
+        names = [k for k, _ in flatten(host.params())]
+        tol_loss = f32_tolerance(2)
+        err_loss = abs(got["card"][0] - got["cpu"][0])
+        g_card, g_cpu, g64 = (dict(zip(names, got[k][1]))
+                              for k in ("card", "cpu", "float64"))
+        e_card = {k: grad_error(g_card[k], g64[k]) for k in names}
+        e_cpu = {k: grad_error(g_cpu[k], g64[k]) for k in names}
+        rtol = {k: card_grad_rtol(e_cpu[k], 2) for k in names}
+        worst = max(names, key=lambda k: e_card[k] / rtol[k])
+        e_apart = {k: grad_error(g_card[k], g_cpu[k]) for k in names}
+        apart = max(names, key=e_apart.get)
+        routing = ""
+        if small.moe:
+            calls = [got[k][2] for k in ("card", "cpu", "float64")]
+            if len({len(c) for c in calls}) != 1 or not calls[0]:
+                fail(f"[train card-vs-cpu {arch}] MoE calls "
+                     f"{[len(c) for c in calls]} on the card, the CPU and "
+                     f"in float64")
+            for i, sets in enumerate(zip(*calls)):
+                first = sets[0].sort(-1)[0]
+                if not all(torch.equal(first, e.sort(-1)[0]) for e in sets):
+                    fail(f"[train card-vs-cpu {arch}] MoE call {i}: the "
+                         f"expert sets differ between the card, the CPU and "
+                         f"float64")
+            routing = (f"; expert sets equal in all {len(calls[0])} MoE "
+                       f"calls")
+        log(f"[train card-vs-cpu {arch}] the first 2 layers at full width "
+            f"({size / 1e9:.3f} GB of float32 weights on the CPU, as much "
+            f"again of gradients), {b9} x {s9} "
+            f"tokens: float32 loss {got['cpu'][0]:.6f}, card against CPU "
+            f"{err_loss:.3g} (tolerance {tol_loss:.6f}), against float64 "
+            f"{got['card'][0] - got['float64'][0]:.3g} and "
+            f"{got['cpu'][0] - got['float64'][0]:.3g}; float32 gradients "
+            f"against float64, the worst leaf against its rule {worst}: card "
+            f"{e_card[worst]:.3g}, CPU {e_cpu[worst]:.3g} of its largest "
+            f"(rule {rtol[worst]:.3g}); the most apart, card against CPU, "
+            f"{apart} at {e_apart[apart]:.3g}; over "
+            f"{len(names)} leaves{routing} ({gpu})")
+        if err_loss > tol_loss or e_card[worst] > rtol[worst]:
+            fail(f"[train card-vs-cpu {arch}] loss {err_loss} (tolerance "
+                 f"{tol_loss}) or gradient {worst} {e_card[worst]} (rule "
+                 f"{rtol[worst]}) beyond the float32 rule")
+        if arch == TRAIN_ARCH:
+            ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+            old = {k: p.detach().clone() for k, p in flatten(host.params())}
+            states = [make_train_step(m, ocfg)(adamw.init(m.params(), ocfg),
+                                               batch)[0] for m in (card, host)]
+            # the gradient the step applied, clipped: mu / (1 - b1) at step 1
+            applied = {k: m / (1 - ocfg.b1) for k, m in flatten(states[1].mu)}
+            del g_card, g_cpu, g64
+            ratios = {k: first_step_error(
+                a.detach().cpu().numpy(), b.detach().numpy(), old[k].numpy(),
+                applied[k].numpy(), ocfg.lr, rtol[k] + e_cpu[k])
+                for (k, a), b in zip(flatten(card.params()),
+                                     leaves(host.params()))}
+            worst = max(ratios, key=ratios.get)
+            log(f"[train card-vs-cpu {arch}] one make_train_step (lr "
+                f"{ocfg.lr}) on each side in float32: the updated params' "
+                f"worst leaf {worst} at {ratios[worst]:.3g} of its "
+                f"first-step bound ({gpu})")
+            if ratios[worst] > 1.0:
+                fail(f"[train card-vs-cpu {arch}] updated params {worst} "
+                     f"beyond the first-step bound ({ratios[worst]})")
+        del card, host, got
+        torch.cuda.empty_cache()
+        log(f"[train card-vs-cpu {arch}] took {time.monotonic() - t0:.1f} s")
+
+
+def train_ring(dev, gpu):
+    """Phase 9d: ``ring_allreduce_int8`` over 8 replicas on the card of a
+    gradient of ``smollm-360m``'s ``w_gate`` shape: the replicas identical
+    and equal bit for bit to the CPU's ring of the same inputs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import compressed
+
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    shape = (cfg.d_model, cfg.d_ff)            # smollm-360m's w_gate
+    xs = [torch.randn(shape, generator=gen, device=dev) * 1e-3
+          for _ in range(8)]
+    got = compressed.ring_allreduce_int8(xs)
+    want = compressed.ring_allreduce_int8([x.cpu() for x in xs])
+    identical = all(torch.equal(g, got[0]) for g in got)
+    equal = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    exact = torch.stack(xs).mean(0)
+    rel = float((got[0] - exact).norm() / exact.norm())
+    ring_ms = time_ms(lambda: compressed.ring_allreduce_int8(xs), reps=3)
+    log(f"[train ring] ring_allreduce_int8 over 8 replicas on the card of a "
+        f"{shape} gradient: replicas identical {identical}, equal bit for "
+        f"bit to the CPU's ring {equal}, relative error against the exact "
+        f"mean {rel:.4g}; {ring_ms:.2f} ms a reduce ({gpu})")
+    if not (identical and equal):
+        fail("[train ring] the card's ring differs between replicas or from "
+             "the CPU's")
 
 
 def main(argv=None) -> int:
@@ -2314,6 +2788,11 @@ def main(argv=None) -> int:
     # 8. the dense, MoE and SSM model families at full width -----------------
     serve_models(dev, gpu)
     lap("8")
+
+    # 9. training -------------------------------------------------------------
+    train_models(dev, gpu)
+    lap("9")
+    log(f"[time] the whole run: {time.monotonic() - laps[0]:.1f} s")
 
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

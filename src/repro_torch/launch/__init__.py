@@ -1,2 +1,3 @@
 """Entry points of the PyTorch port: the planner-serving CLI and the
-report, the model-serving driver (``serve_model``) and the planner mesh."""
+report, model serving (``serve_model``), the trainer
+(``train``) and its steps (``steps``), and the planner mesh."""

@@ -17,6 +17,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import leaves
 
 # ---------------------------------------------------------------------------
 # Config
@@ -168,17 +169,6 @@ class Initializer:
         raise ValueError(init)
 
 
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-
-
 def cast(tree, dtype):
     """``tree`` with every floating leaf cast to ``dtype`` (other leaves as
     they are); dicts and lists keep their structure."""
@@ -192,7 +182,7 @@ def cast(tree, dtype):
 
 
 def param_count(params: Dict[str, Any]) -> int:
-    return sum(int(x.numel()) for x in _leaves(params))
+    return sum(int(x.numel()) for x in leaves(params))
 
 
 def unstack(tree, n):

@@ -56,6 +56,18 @@ def _bonus(qf, u, kf):
     return (qf * u.float() * kf).sum(-1)
 
 
+def _cumsum(x, dim: int):
+    """The prefix sums of ``x`` along ``dim`` as the CPU's ``torch.cumsum``
+    makes them for float32 (summed in float64, each rounded once), written
+    as a product with a triangular matrix of ones in float64: the same on
+    the card, and allowed under ``torch.use_deterministic_algorithms``,
+    which refuses every floating-point ``torch.cumsum`` on CUDA."""
+    n = x.shape[dim]
+    ones = torch.ones((n, n), dtype=torch.float64, device=x.device).triu()
+    sums = torch.einsum("...c,ct->...t", x.movedim(dim, -1).double(), ones)
+    return sums.to(x.dtype).movedim(-1, dim)
+
+
 def _zero_state(B, H, dk, dv, device):
     return torch.zeros((B, H, dk, dv), dtype=torch.float32, device=device)
 
@@ -100,7 +112,7 @@ def gla_chunked_scalar(q, k, v, g, *, chunk: int = 128,
     q, k, v, g, S_orig = _pad_to_chunks(q, k, v, g.float(), c)
     S = q.shape[1]
     qc, kc, vc = (_split_chunks(x, c) for x in (q, k, v))       # (B,N,c,H,.)
-    G = torch.cumsum(_split_chunks(g, c), dim=2)                # (B,N,c,H)
+    G = _cumsum(_split_chunks(g, c), dim=2)                     # (B,N,c,H)
     Gtot = G[:, :, -1]                                          # (B,N,H)
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
 
@@ -145,7 +157,7 @@ def gla_chunked_vector(q, k, v, g, u, *, chunk: int = 16,
     S = q.shape[1]
     qc, kc, vc = (_split_chunks(x, c) for x in (q, k, v))
     gc = _split_chunks(g, c)                                    # (B,N,c,H,dk)
-    G = torch.cumsum(gc, dim=2)
+    G = _cumsum(gc, dim=2)
     Gtot = G[:, :, -1]                                          # (B,N,H,dk)
     Gprev = G - gc                                              # exclusive
     smask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device),

@@ -302,11 +302,29 @@ def init_mlp(ini: Initializer, path: str, d: int, d_ff: int, stack=()):
     }
 
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic``: XLA's expansion forward, and its own derivative
+    backward, g * (y * (1 - y)) (``jax/_src/lax/lax.py``). Autograd of the
+    expansion would multiply 0 by the infinite exp(-x) where x < -88 (the
+    float32 and bfloat16 range), a NaN gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
 def logistic(x):
     """``jax.nn.sigmoid`` (``lax.logistic``) as the reference computes it:
     1 / (1 + exp(-x)) with every op rounded in x's dtype (XLA's
-    expansion)."""
-    return 1.0 / (1.0 + torch.exp(-x))
+    expansion), differentiated as ``lax.logistic`` is."""
+    return _Logistic.apply(x)
 
 
 def silu(x):

@@ -11,10 +11,10 @@ attention-free); and the Mamba2 hybrid (``zamba2``: groups of Mamba2
 layers, each group followed by one attention block whose weights every
 group shares).
 
-``Model`` is an ``nn.Module`` with ``forward(batch)``, the single-token
-serving step ``decode_step(cache, batch, cache_index)`` and
-``init_cache(B, S_max)``. It serves: no autograd and no remat (training is
-a later slice). Its parameters are the reference's tree with the stacked
+``Model`` is an ``nn.Module`` with ``forward(batch)``, the training
+objective ``loss(batch)``, the single-token serving step
+``decode_step(cache, batch, cache_index)`` and ``init_cache(B, S_max)``.
+Its parameters are the reference's tree with the stacked
 layer axes unstacked into one entry a layer: ``prefix``, the
 ``first_dense`` leading dense blocks (unstacked in the reference too), and
 ``blocks``, the other layers, each with an ``mlp`` or, for MoE configs,
@@ -24,21 +24,35 @@ group of the reference's (G,) stacks ``cross``, ``cross_ln``,
 ``cross_mlp`` and ``cross_ln2``; for ``rwkv6`` the (L,) stack of ``ln1``,
 ``tm``, ``ln2``, ``cm``; for ``zamba2`` the (G, M) stack of ``ln`` and
 ``mamba``, its G * M layers in order, and the one unstacked
-``shared_attn`` block. The reference keeps them in
-``cfg.param_dtype`` and casts the matrices to ``cfg.dtype`` at every use;
-the model holds each matrix once, in ``cfg.dtype``, which computes the
-same numbers, and keeps in ``cfg.param_dtype`` the leaves the reference
+``shared_attn`` block.
+
+The reference keeps every leaf in ``cfg.param_dtype`` (float32) and casts
+a matrix to ``cfg.dtype`` at each use. A model built to serve holds each
+matrix once, in ``cfg.dtype``, which computes the same forward numbers,
+with no autograd; it keeps in ``cfg.param_dtype`` the leaves the reference
 reads in float32: the norms' scales (``kv_norm``, RWKV6's ``ln_scale`` and
 Mamba2's gated ``norm`` among them), the MoE router, RWKV6's decay path
 (``w0``, ``decay_w1``, ``decay_w2``) and bonus ``u``, and Mamba2's
-``a_log`` and ``dt_bias``.
+``a_log`` and ``dt_bias``. A model built to train (``trainable=True``)
+holds every leaf in ``cfg.param_dtype`` as a parameter that takes a
+gradient, and every use casts it, as the reference's does: each use's
+``cfg.dtype`` gradient is widened on its own and the uses are summed in
+float32 (the tied embedding's gather and head, zamba2's shared block in
+each group, every leaf a remat body reads). While autograd records, each
+scanned layer of the reference (each group for zamba2 and the VLM) runs
+under ``cfg.remat``: "full" recomputes it in the backward
+(``torch.utils.checkpoint``), "dots" keeps the outputs of its products
+with no batch dimensions and recomputes the rest; neither changes a
+number. Decode never remats.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as ll
@@ -55,13 +69,16 @@ _KEPT = ("kv_norm", "router", "w0", "decay_w1", "decay_w2", "u", "ln_scale",
          "a_log", "dt_bias", "norm")
 
 _PATTERNS = ("attn", "rwkv6", "zamba2")
+_REMAT = ("none", "full", "dots")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` for a block pattern the reference has no model
-    of."""
+    of, or a remat policy it has not."""
     if cfg.block_pattern not in _PATTERNS:
         raise ValueError(f"{cfg.name}: block_pattern {cfg.block_pattern!r}")
+    if cfg.remat not in _REMAT:
+        raise ValueError(f"{cfg.name}: remat {cfg.remat!r}")
 
 
 def _init_attn_block(ini, cfg: ModelConfig, path: str, stack, use_moe: bool):
@@ -159,38 +176,61 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None):
     return p
 
 
-def _param(x, device, dtype=None) -> nn.Parameter:
-    return nn.Parameter(torch.as_tensor(x).to(device=device, dtype=dtype),
-                        requires_grad=False)
+def _param(x, device, dtype=None, trainable=False) -> nn.Parameter:
+    """A leaf as a parameter; a trainable one is a copy of ``x``, so the
+    optimizer never writes to the caller's tree."""
+    t = torch.as_tensor(x).to(device=device, dtype=dtype, copy=trainable)
+    return nn.Parameter(t, requires_grad=trainable)
 
 
-def _block(tree, device, dt) -> nn.ModuleDict:
-    """One block's parameters: each matrix cast to ``dt``, the leaves of
-    ``_NORMS`` and ``_KEPT`` as they are."""
+def _block(tree, device, dt, trainable=False) -> nn.ModuleDict:
+    """One block's parameters: to serve, each matrix cast to ``dt``, the
+    leaves of ``_NORMS`` and ``_KEPT`` as they are; to train, every leaf in
+    ``dt`` (the caller's ``cfg.pdtype``)."""
     return nn.ModuleDict({part: nn.ParameterDict({
-        name: _param(w, device, None if part in _NORMS or name in _KEPT
-                     else dt) for name, w in leaves.items()})
+        name: _param(w, device, dt if trainable or not (
+            part in _NORMS or name in _KEPT) else None, trainable)
+        for name, w in leaves.items()})
         for part, leaves in tree.items()})
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy (the reference's
+    ``dots_with_no_batch_dims_saveable``): keep the output of a product with
+    no batch dimensions, recompute every other op. An einsum lowers to
+    ``bmm``, of batch 1 where the product has no batch dimensions."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    nobatch = op is torch.ops.aten.mm.default or (
+        op is torch.ops.aten.bmm.default and args[0].shape[0] == 1)
+    return (CheckpointPolicy.MUST_SAVE if nobatch
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class Model(nn.Module):
     """The decoder on ``device`` (the card unless the caller asks for the
     CPU; without a card asking for it raises). ``params`` (the tree of
-    ``init_params`` or of ``models/convert.from_reference``) is loaded with
-    each matrix cast to ``cfg.dtype`` once, where the reference casts it at
-    every use (the same numbers), and the leaves of ``_NORMS`` and
-    ``_KEPT`` as they are; without it the parameters are drawn from
-    ``seed`` on ``device``, straight into those dtypes. ``embed`` is None
-    under ``embedding_inputs``; ``cross`` holds the VLM's G cross-attention
+    ``init_params`` or of ``models/convert.from_reference``) is loaded as
+    the module docstring says: to serve (the default), each matrix cast to
+    ``cfg.dtype`` once and the leaves of ``_NORMS`` and ``_KEPT`` as they
+    are, no autograd; with ``trainable=True``, a copy of every leaf in
+    ``cfg.param_dtype``, each a parameter that takes a gradient. Without
+    ``params`` the parameters are drawn from ``seed`` on ``device``,
+    straight into those dtypes. ``embed`` is None under
+    ``embedding_inputs``; ``cross`` holds the VLM's G cross-attention
     groups (empty for every other model)."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
-                 params=None):
+                 params=None, trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.trainable = trainable
         device = resolve_device(device)
-        dt = cfg.cdtype
+        dt = cfg.pdtype if trainable else cfg.cdtype
         if params is None:
             params = init_params(cfg, seed=seed, device=device, dtype=dt)
         prefix = params.get("prefix", [])
@@ -204,18 +244,22 @@ class Model(nn.Module):
             raise ValueError(f"{len(cross)} cross-attention groups of "
                              f"parameters for a config of "
                              f"cross_attn_every={cfg.cross_attn_every}")
+
+        def block(tree):
+            return _block(tree, device, dt, trainable)
+
         self.embed = (None if cfg.embedding_inputs
-                      else _param(params["embed"], device, dt))
-        self.prefix = nn.ModuleList(_block(b, device, dt) for b in prefix)
-        self.blocks = nn.ModuleList(_block(b, device, dt)
-                                    for b in params["blocks"])
-        self.cross = nn.ModuleList(_block(g, device, dt) for g in cross)
-        self.shared_attn = (_block(params["shared_attn"], device, dt)
+                      else _param(params["embed"], device, dt, trainable))
+        self.prefix = nn.ModuleList(block(b) for b in prefix)
+        self.blocks = nn.ModuleList(block(b) for b in params["blocks"])
+        self.cross = nn.ModuleList(block(g) for g in cross)
+        self.shared_attn = (block(params["shared_attn"])
                             if cfg.block_pattern == "zamba2" else None)
         self.final_norm = nn.ParameterDict({
-            k: _param(v, device) for k, v in params["final_norm"].items()})
+            k: _param(v, device, dt if trainable else None, trainable)
+            for k, v in params["final_norm"].items()})
         self.lm_head = (None if cfg.tie_embeddings
-                        else _param(params["lm_head"], device, dt))
+                        else _param(params["lm_head"], device, dt, trainable))
 
     @property
     def head(self) -> torch.Tensor:
@@ -230,6 +274,20 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # block application
     # ------------------------------------------------------------------
+
+    def _remat(self, fn, *args):
+        """``fn(*args)`` under ``cfg.remat`` where the model trains and
+        autograd records, else plainly."""
+        policy = self.cfg.remat
+        if not (self.trainable and torch.is_grad_enabled()) or \
+                policy == "none":
+            return fn(*args)
+        if policy == "full":
+            return checkpoint(fn, *args, use_reentrant=False)
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=(
+            functools.partial(create_selective_checkpoint_contexts,
+                              _save_dots)))
 
     def _attn_block(self, p, x, positions, cache, cache_index):
         """One block. Returns (x, the MoE load-balance loss, or None for a
@@ -248,131 +306,146 @@ class Model(nn.Module):
             y = y + ll.mlp(p["shared"], h, cfg.cdtype)
         return x + y, aux
 
-    def _rwkv6_blocks(self, x, cache):
+    def _rwkv6_layer(self, blk, x, tm_state, cm_state):
         """The reference's ``rwkv6`` body: norm, time mix, residual, norm,
-        channel mix, residual; with a cache, each layer's shifts and wkv
-        state written back in place."""
+        channel mix, residual. Returns (x, the new time-mix and channel-mix
+        states, None without a cache)."""
         cfg = self.cfg
+        a, tm_new = ssm.rwkv6_time_mix(
+            blk["tm"], ll.rmsnorm(blk["ln1"], x, cfg.norm_eps,
+                                  fast=cfg.fast_norm), cfg, state=tm_state)
+        x = x + a
+        m, cm_new = ssm.rwkv6_channel_mix(
+            blk["cm"], ll.rmsnorm(blk["ln2"], x, cfg.norm_eps,
+                                  fast=cfg.fast_norm), cfg, state=cm_state)
+        return x + m, tm_new, cm_new
+
+    def _rwkv6_blocks(self, x, cache):
+        """The ``rwkv6`` layers; with a cache, each layer's shifts and wkv
+        state written back in place."""
+        run = self._remat if cache is None else _call
         for i, blk in enumerate(self.blocks):
             tm_state = cm_state = None
             if cache is not None:
                 c = cache["blocks"]
                 tm_state = {"tm_shift": c["tm_shift"][i], "wkv": c["wkv"][i]}
                 cm_state = {"cm_shift": c["cm_shift"][i]}
-            a, tm_new = ssm.rwkv6_time_mix(
-                blk["tm"], ll.rmsnorm(blk["ln1"], x, cfg.norm_eps,
-                                      fast=cfg.fast_norm), cfg,
-                state=tm_state)
-            x = x + a
-            m, cm_new = ssm.rwkv6_channel_mix(
-                blk["cm"], ll.rmsnorm(blk["ln2"], x, cfg.norm_eps,
-                                      fast=cfg.fast_norm), cfg,
-                state=cm_state)
-            x = x + m
+            x, tm_new, cm_new = run(self._rwkv6_layer, blk, x, tm_state,
+                                    cm_state)
             if cache is not None:
                 for state, new in ((tm_state, tm_new), (cm_state, cm_new)):
                     for k, v in new.items():
                         state[k].copy_(v)
         return x
 
-    def _zamba2_groups(self, x, positions, cache, cache_index):
-        """The reference's ``zamba2`` groups: M Mamba2 layers behind their
-        norms, then the shared attention block, the same weights in every
-        group and a KV cache of its own a group; with a cache, each Mamba2
-        layer's conv and ssm state written back in place."""
+    def _zamba2_group(self, g, x, positions, cache, cache_index):
+        """Group ``g`` of the reference's ``zamba2``: M Mamba2 layers behind
+        their norms, then the shared attention block, the same weights in
+        every group and a KV cache of its own a group; with a cache, each
+        Mamba2 layer's conv and ssm state written back in place."""
         cfg = self.cfg
         M = cfg.shared_attn_every
-        for g in range(len(self.blocks) // M):
-            for j in range(M):
-                lp = self.blocks[g * M + j]
-                state = None
-                if cache is not None:
-                    state = {k: v[g, j] for k, v in
-                             cache["blocks"]["mamba"].items()}
-                z = ll.rmsnorm(lp["ln"], x, cfg.norm_eps, fast=cfg.fast_norm)
-                out, new = ssm.mamba2_layer(lp["mamba"], z, cfg, state=state)
-                x = x + out
-                if cache is not None:
-                    for k, v in new.items():
-                        state[k].copy_(v)
-            kv = None if cache is None else {
-                k: v[g] for k, v in cache["blocks"]["attn"].items()}
-            x, _ = self._attn_block(self.shared_attn, x, positions, kv,
-                                    cache_index)
+        for j in range(M):
+            lp = self.blocks[g * M + j]
+            state = None
+            if cache is not None:
+                state = {k: v[g, j] for k, v in
+                         cache["blocks"]["mamba"].items()}
+            z = ll.rmsnorm(lp["ln"], x, cfg.norm_eps, fast=cfg.fast_norm)
+            out, new = ssm.mamba2_layer(lp["mamba"], z, cfg, state=state)
+            x = x + out
+            if cache is not None:
+                for k, v in new.items():
+                    state[k].copy_(v)
+        kv = None if cache is None else {
+            k: v[g] for k, v in cache["blocks"]["attn"].items()}
+        x, _ = self._attn_block(self.shared_attn, x, positions, kv,
+                                cache_index)
         return x
 
-    def _vlm_groups(self, x, positions, cache, cache_index, patches):
-        """The reference's ``_vlm_groups``: for each group its M self
+    def _vlm_group(self, g, x, positions, cache, cache_index, patches):
+        """Group ``g`` of the reference's ``_vlm_groups``: its M self
         attention blocks (their k and v under the cache's
         ``cross_groups.self`` (G, M, ...)), then the cross-attention
         sublayer behind ``cross_ln``, over the group's ``cross_kv`` when
         decoding and over ``patches`` when not, then the MLP behind
-        ``cross_ln2``. Returns (x, the summed load-balance loss)."""
+        ``cross_ln2``. Returns (x, the group's summed load-balance loss)."""
         cfg = self.cfg
         M = cfg.cross_attn_every
+        gp = self.cross[g]
         aux = torch.zeros((), device=x.device)
-        for g, gp in enumerate(self.cross):
-            for j in range(M):
-                kv = None if cache is None else {
-                    k: v[g, j] for k, v in
-                    cache["cross_groups"]["self"].items()}
-                x, a = self._attn_block(self.blocks[g * M + j], x, positions,
-                                        kv, cache_index)
-                if a is not None:
-                    aux = aux + a
-            kvc = None if cache is None else {
-                k: v[g] for k, v in cache["cross_groups"]["cross_kv"].items()}
-            z = ll.rmsnorm(gp["cross_ln"], x, cfg.norm_eps, fast=cfg.fast_norm)
-            x = x + ll.cross_attention(gp["cross"], z, patches, cfg,
-                                       kv_cache=kvc)
-            z = ll.rmsnorm(gp["cross_ln2"], x, cfg.norm_eps,
-                           fast=cfg.fast_norm)
-            x = x + ll.mlp(gp["cross_mlp"], z, cfg.cdtype)
-        return x, aux
+        for j in range(M):
+            kv = None if cache is None else {
+                k: v[g, j] for k, v in cache["cross_groups"]["self"].items()}
+            x, a = self._attn_block(self.blocks[g * M + j], x, positions, kv,
+                                    cache_index)
+            if a is not None:
+                aux = aux + a
+        kvc = None if cache is None else {
+            k: v[g] for k, v in cache["cross_groups"]["cross_kv"].items()}
+        z = ll.rmsnorm(gp["cross_ln"], x, cfg.norm_eps, fast=cfg.fast_norm)
+        x = x + ll.cross_attention(gp["cross"], z, patches, cfg,
+                                   kv_cache=kvc)
+        z = ll.rmsnorm(gp["cross_ln2"], x, cfg.norm_eps, fast=cfg.fast_norm)
+        return x + ll.mlp(gp["cross_mlp"], z, cfg.cdtype), aux
 
     def _run_blocks(self, x, positions, cache, cache_index, patches=None):
-        """Returns (x, the summed load-balance loss, float32)."""
+        """Returns (x, the summed load-balance loss, float32). Without a
+        cache, each scanned layer (each group) runs under ``_remat``; the
+        dense prefix does not, as the reference's does not."""
+        run = self._remat if cache is None else _call
         aux = torch.zeros((), device=x.device)
         if self.cfg.block_pattern == "rwkv6":
             return self._rwkv6_blocks(x, cache), aux
         if self.cfg.block_pattern == "zamba2":
-            return self._zamba2_groups(x, positions, cache, cache_index), aux
+            for g in range(len(self.blocks) // self.cfg.shared_attn_every):
+                x = run(self._zamba2_group, g, x, positions, cache,
+                        cache_index)
+            return x, aux
         for i, blk in enumerate(self.prefix):
             c = None if cache is None else cache["prefix"][i]
             x, _ = self._attn_block(blk, x, positions, c, cache_index)
         if self.cross:
-            return self._vlm_groups(x, positions, cache, cache_index, patches)
+            for g in range(len(self.cross)):
+                x, a = run(self._vlm_group, g, x, positions, cache,
+                           cache_index, patches)
+                aux = aux + a
+            return x, aux
         for i, blk in enumerate(self.blocks):
             c = None if cache is None else {
                 k: v[i] for k, v in cache["blocks"].items()}
-            x, a = self._attn_block(blk, x, positions, c, cache_index)
+            x, a = run(self._attn_block, blk, x, positions, c, cache_index)
             if a is not None:
                 aux = aux + a
         return x, aux
 
     # ------------------------------------------------------------------
-    # forward / decode
+    # forward / loss / decode
     # ------------------------------------------------------------------
 
     def _embed_in(self, batch):
-        """The token embeddings of ``batch["tokens"]`` (B, S), or under
-        ``embedding_inputs`` ``batch["embeds"]`` (B, S, d) in the compute
-        dtype."""
+        """The token embeddings of ``batch["tokens"]`` (B, S), the table
+        cast to the compute dtype before the gather as the reference casts
+        it, or under ``embedding_inputs`` ``batch["embeds"]`` (B, S, d) in
+        the compute dtype."""
+        dt = self.cfg.cdtype
         if self.cfg.embedding_inputs:
-            return torch.as_tensor(batch["embeds"]).to(
-                device=self.device, dtype=self.cfg.cdtype)
-        return self.embed[torch.as_tensor(batch["tokens"]).long()
-                          .to(self.device)]
+            return torch.as_tensor(batch["embeds"]).to(device=self.device,
+                                                       dtype=dt)
+        return self.embed.to(dt)[torch.as_tensor(batch["tokens"]).long()
+                                 .to(self.device)]
+
+    def _head_in(self, x):
+        """The final norm of the last block's output."""
+        return ll.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
 
     def _logits(self, x):
-        h = ll.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        return torch.einsum("bsd,dv->bsv", h, self.head)
+        return torch.einsum("bsd,dv->bsv", self._head_in(x),
+                            self.head.to(self.cfg.cdtype))
 
-    def forward(self, batch):
-        """Logits (B, S, V) of ``batch["tokens"]`` (B, S) (or ``"embeds"``
-        (B, S, d)), and the summed load-balance loss of the MoE blocks
-        (zero without them), as the reference's ``Model.forward``. The VLM
-        needs ``batch["patches"]`` (B, P, d), cast to the compute dtype."""
+    def _hidden(self, batch):
+        """The last block's output (B, S, d) and the summed load-balance
+        loss."""
         x = self._embed_in(batch)
         patches = batch.get("patches")
         if patches is not None:
@@ -382,8 +455,41 @@ class Model(nn.Module):
             raise ValueError(f"{self.cfg.name}: forward needs "
                              f'batch["patches"] (B, num_patches, d_model)')
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, aux = self._run_blocks(x, positions, None, None, patches)
+        return self._run_blocks(x, positions, None, None, patches)
+
+    def forward(self, batch):
+        """Logits (B, S, V) of ``batch["tokens"]`` (B, S) (or ``"embeds"``
+        (B, S, d)), and the summed load-balance loss of the MoE blocks
+        (zero without them), as the reference's ``Model.forward``. The VLM
+        needs ``batch["patches"]`` (B, P, d), cast to the compute dtype."""
+        x, aux = self._hidden(batch)
         return self._logits(x), aux
+
+    def loss(self, batch):
+        """The reference's ``Model.loss``: the mean cross entropy of the
+        logits against ``batch["labels"]`` (B, S), labels below 0 masked,
+        plus ``router_aux_coef`` times the load-balance loss. Where
+        ``cfg.logit_chunk`` divides S and is smaller, the logits are made
+        and reduced a chunk of positions at a time, the (sum, count) pairs
+        summed. Returns (loss, {"ce", "aux", "tokens"}), float32."""
+        cfg = self.cfg
+        labels = torch.as_tensor(batch["labels"]).to(self.device).long()
+        S, C = labels.shape[1], cfg.logit_chunk
+        if C and S % C == 0 and S > C:
+            x, aux = self._hidden(batch)
+            h = self._head_in(x)
+            head = self.head.to(cfg.cdtype)
+            tot = n = torch.zeros((), device=x.device)
+            for c in range(0, S, C):
+                logits = torch.einsum("bsd,dv->bsv", h[:, c:c + C], head)
+                s, k = _masked_ce_sums(logits, labels[:, c:c + C])
+                tot, n = tot + s, n + k
+            ce = tot / torch.clamp(n, min=1.0)
+        else:
+            logits, aux = self.forward(batch)
+            ce, n = _masked_ce(logits, labels)
+        loss = ce + cfg.router_aux_coef * aux
+        return loss, {"ce": ce, "aux": aux, "tokens": n}
 
     def decode_step(self, cache, batch, cache_index: int):
         """One-token decode: ``batch["tokens"]`` (B, 1) (or ``"embeds"``
@@ -471,3 +577,23 @@ class Model(nn.Module):
         if self.lm_head is not None:
             p["lm_head"] = self.lm_head
         return p
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def _masked_ce_sums(logits, labels):
+    """(the sum of the cross entropies of the positions whose label is at
+    least 0, their count), logsumexp in float32 or wider."""
+    lf = ll.wide(logits)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(lf.dtype)
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def _masked_ce(logits, labels):
+    s, n = _masked_ce_sums(logits, labels)
+    return s / torch.clamp(n, min=1.0), n

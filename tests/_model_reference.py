@@ -1,7 +1,7 @@
 """The reference's side of the port's model tests, built once a process and
 shared by ``tests/test_torch_models.py``, ``tests/test_torch_moe.py``,
-``tests/test_torch_ssm.py``, ``tests/test_torch_multimodal.py`` and
-``tests/test_torch_serve_model.py``: an
+``tests/test_torch_ssm.py``, ``tests/test_torch_multimodal.py``,
+``tests/test_torch_serve_model.py`` and ``tests/test_torch_train.py``: an
 arch's SMOKE config, its ``Model`` (MoE configs on the trivial (1, 1)
 mesh), its ``Model.init(seed=0)`` parameters, those parameters carried
 across to the port, and its jitted decode step. Nothing here is written
@@ -98,6 +98,21 @@ def port_params(arch: str):
     """``ref_params(arch)`` as the port's parameter tree, on the CPU."""
     return convert.from_reference(jax.tree.map(np.asarray, ref_params(arch)),
                                   ref_model(arch)[0].num_layers)
+
+
+@functools.lru_cache(maxsize=None)
+def gated(arch: str):
+    """(the reference's ``Model.init(seed=0)`` tree with the VLM's gates set
+    to seeded values in [0.5, 1.5), the same as the port's tree). The
+    audio model has no gate: its trees as drawn."""
+    ref = ref_params(arch)
+    if "cross" not in ref:
+        return ref, port_params(arch)
+    G = ref["cross"]["gate"].shape[0]
+    gates = 0.5 + np.random.default_rng(4).random(G).astype(np.float32)
+    ref = {**ref, "cross": {**ref["cross"], "gate": jnp.asarray(gates)}}
+    return ref, convert.from_reference(jax.tree.map(np.asarray, ref),
+                                       ref_model(arch)[0].num_layers)
 
 
 @contextlib.contextmanager

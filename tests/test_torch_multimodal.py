@@ -24,7 +24,6 @@ reference's own projection.
   ``init_cache``'s tree and the converter's round trip.
 """
 import contextlib
-import functools
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -43,8 +42,8 @@ from repro_torch.models.transformer import Model, init_params
 
 from _model_cases import F32_ATOL
 from _model_reference import jax_caches_cleared  # noqa: F401 (autouse)
-from _model_reference import (AUDIO, VLM, port_params, ref_model, ref_params,
-                              ref_step, xla_products)
+from _model_reference import (AUDIO, VLM, gated, port_params, ref_model,
+                              ref_params, ref_step, xla_products)
 
 B, S, CACHE_LEN = 2, 8, 16
 
@@ -63,21 +62,6 @@ def f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
     return np.asarray(x, np.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def gated(arch: str):
-    """(the reference's ``Model.init(seed=0)`` tree with the VLM's gates set
-    to seeded values in [0.5, 1.5), the same as the port's tree). The
-    audio model has no gate: its trees as drawn."""
-    ref = ref_params(arch)
-    if "cross" not in ref:
-        return ref, port_params(arch)
-    G = ref["cross"]["gate"].shape[0]
-    gates = 0.5 + np.random.default_rng(4).random(G).astype(np.float32)
-    ref = {**ref, "cross": {**ref["cross"], "gate": jnp.asarray(gates)}}
-    return ref, convert.from_reference(jax.tree.map(np.asarray, ref),
-                                       ref_model(arch)[0].num_layers)
 
 
 def pair(arch: str, **replace):
