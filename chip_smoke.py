@@ -82,7 +82,8 @@ Phases, each failing loudly (no phase's failure is caught):
    seeds of ``tests/torch_golden/quality_full.json`` (the reference's
    energies from CPU JAX): every plan valid, and each cell's mean energy
    over the seeds at most the reference's mean plus two standard errors
-   of its seed spread;
+   of its seed spread; each (cell, seed) solved in one of up to 8
+   worker processes on the card;
 8. the dense, MoE and SSM model families and the VLM and audio backbones
    (``repro_torch.launch.serve_model.serve``) at full width, weights drawn
    from seed 0 and held in bfloat16: ``smollm-360m`` (32 layers, d_model
@@ -144,7 +145,26 @@ Phases, each failing loudly (no phase's failure is caught):
    ``card_grad_rtol``, olmoe's expert sets equal, one train step's params
    for smollm within ``first_step_error``; and the int8 ring over 8
    replicas on the card bit for bit against the CPU's. No kernel of the
-   port runs on this path.
+   port runs on this path;
+10. the dry run (``repro_torch.launch.dryrun``; ``dryrun_models``): (a)
+   ``run_roofline_cell`` for the ten archs x the four shapes on the (16,
+   16) production mesh of ``meta`` entries, in worker processes: every
+   cell ``ok``, or ``skip`` with the reference's reason, and no
+   collective bytes; each cell's three roofline terms at 256 H100s, its
+   dominant term, roofline fraction and per-device argument bytes beside
+   the card's memory; (b) ``smollm-360m``'s training step at phase 9a's
+   shape and its decode step at phase 8's, traced on ``meta`` under
+   ``FlopCounterMode`` and run once on the card under it: the counts
+   equal, ``torch.profiler``'s ``with_flops`` sum beside them; each
+   record through the port's ``RooflinePredictor`` (the unfused bytes,
+   and the fused estimate) beside the step phases 9a and 8 measured; (c)
+   GPipe (``models/pipeline.pp_loss_fn``) for ``smollm-360m`` at full
+   width and depth in float32 over a ("data", "stage") (1, 4) mesh of
+   the card, 4 microbatches of a batch of 8 x 512: the loss within 2e-4
+   of the unstaged ``Model.loss``, every gradient leaf against float64
+   within ``card_grad_rtol``, the bytes hopped between stages equal to
+   the formula; each step's ms and peak memory beside the dry run's
+   reckoning, and the bubble. No kernel of the port runs on this path.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
@@ -1582,6 +1602,7 @@ def serve_models(dev, gpu):
                 fail(f"[serve {arch}] card and CPU float32 logits differ by "
                      f"{err}, beyond the float32 tolerance {tol}")
 
+    decode_ms = {}
     for arch, runs in SERVED:
         cfg = get_config(arch)
         t_arch = time.monotonic()
@@ -1657,7 +1678,7 @@ def serve_models(dev, gpu):
         with Routes(moe) as routed:
             step()
         distinct = [int(torch.unique(e).numel()) for e, _ in routed.seen]
-        ms = time_ms(step, reps=16)
+        ms = decode_ms[arch] = time_ms(step, reps=16)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1719,6 +1740,29 @@ def serve_models(dev, gpu):
         torch.cuda.empty_cache()
         log(f"[serve {arch}] phase 8 for this arch took "
             f"{time.monotonic() - t_arch:.1f} s")
+    return decode_ms
+
+
+def quality_seed(cell: str, seed: int):
+    """One cell of phase 7 at one solver seed, in a worker process on the
+    card: (mean energy of the seed's plans, number of plans, validation
+    errors, seconds), as ``_quality.sweep`` reckons a seed."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    import _quality as q
+
+    torch.set_num_threads(1)        # one core a worker
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    api = q.modules({m: importlib.import_module(f"repro_torch.{m}")
+                     for m in q.MODULES}, device=dev)
+    t0 = time.monotonic()
+    energies, errors, _ = q.solve(api, cell, "full", seed)
+    return (float(np.mean(energies)), len(energies), errors,
+            time.monotonic() - t0)
 
 
 def quality(dev, gpu):
@@ -1728,21 +1772,35 @@ def quality(dev, gpu):
     solver seeds of ``tests/torch_golden/quality_full.json`` (the
     reference's energies, written on CPU JAX by
     ``tests/_quality_reference.py``); every plan must be valid and the
-    cell must hold the rule. A cell that misses it fails the run."""
-    import importlib
+    cell must hold the rule. A cell that misses it fails the run. Each
+    (cell, seed) is one job of a pool of worker processes (up to 8,
+    spawned, joined at the end), all on the one card: each solve is
+    seeded, so a seed's plans do not depend on the process that makes
+    them, and the host's work, which dominates the solves, runs on as
+    many cores as there are workers."""
+    import concurrent.futures
+    import multiprocessing
 
     import _quality as q
 
     with open(os.path.join(ROOT, "tests", "torch_golden",
                            "quality_full.json")) as f:
         golden = json.load(f)["cells"]
-    api = q.modules({m: importlib.import_module(f"repro_torch.{m}")
-                     for m in q.MODULES}, device=dev)
+    refs = {cell: {int(s): m for s, m in golden[cell]["seeds"].items()}
+            for cell in sorted(q.CELLS)}
+    # the ising-isolated cell's seeds take longest: first in
+    jobs = sorted(((cell, seed) for cell in refs for seed in refs[cell]),
+                  key=lambda j: j[0] != "ising-isolated")
+    t0 = time.monotonic()
+    workers = min(8, os.cpu_count() or 4)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {j: pool.submit(quality_seed, *j) for j in jobs}
+        done = {j: f.result() for j, f in futures.items()}
     missed = []
-    for cell in sorted(q.CELLS):
-        ref = {int(s): m for s, m in golden[cell]["seeds"].items()}
-        t0 = time.monotonic()
-        means, errors = q.sweep(api, cell, "full", seeds=sorted(ref))
+    for cell, ref in refs.items():
+        means = {s: done[(cell, s)][:2] for s in sorted(ref)}
+        errors = [e for s in sorted(ref) for e in done[(cell, s)][2]]
         if errors:
             fail(f"[quality {cell}] invalid plans: {errors[:3]}")
         holds, mean, bound = q.check({s: m for s, (m, _) in means.items()},
@@ -1753,9 +1811,13 @@ def quality(dev, gpu):
             f"{float(sum(ref.values()) / len(ref))!r}, bound {bound!r}: "
             f"{'holds' if holds else 'MISSED'}; port per seed "
             f"{ {s: round(m, 5) for s, (m, _) in means.items()} } in "
-            f"{time.monotonic() - t0:.1f} s ({gpu})")
+            f"{sum(done[(cell, s)][3] for s in ref):.1f} s of solves "
+            f"({gpu})")
         if not holds:
             missed.append(cell)
+    log(f"[quality] {len(jobs)} seeds of {len(refs)} cells in "
+        f"{time.monotonic() - t0:.1f} s ({workers} worker processes on the "
+        f"one card)")
     if missed:
         fail(f"[quality] the rule is missed in {missed}")
 
@@ -1788,11 +1850,12 @@ def train_flops(cfg, B, S, n_params):
 def train_models(dev, gpu):
     """Phase 9: training (``repro_torch.launch.train.train``), in four
     parts: ``train_smollm`` (a), ``train_resume`` (b), ``train_card_vs_cpu``
-    (c) and ``train_ring`` (d)."""
-    train_smollm(dev, gpu)
+    (c) and ``train_ring`` (d). Returns 9a's warm step ms."""
+    step_ms = train_smollm(dev, gpu)
     train_resume(dev, gpu)
     train_card_vs_cpu(dev, gpu)
     train_ring(dev, gpu)
+    return step_ms
 
 
 def product_census():
@@ -1977,6 +2040,7 @@ def train_smollm(dev, gpu):
             for e in ops))
     del model, made, state, batch, prof, events
     torch.cuda.empty_cache()
+    return ms
 
 
 def train_resume(dev, gpu):
@@ -2213,6 +2277,285 @@ def train_ring(dev, gpu):
     if not (identical and equal):
         fail("[train ring] the card's ring differs between replicas or from "
              "the CPU's")
+
+
+# --- phase 10: the dry run, its roofline against the card, GPipe ----------
+
+# 10b's cells: phase 9a's training step and phase 8's decode step of the
+# same arch, each as a shape of its own
+DRY_TRAIN = ("train_8x2048", TRAIN_S, TRAIN_B, "train")
+DRY_DECODE = ("decode_4x48", 48, 4, "decode")     # phase 8: 16 + 32 tokens
+# 10c: GPipe over a (1, 4) ("data", "stage") mesh of the one card
+PP_B, PP_S, PP_STAGES, PP_MICRO = 8, 512, 4, 4
+
+
+def dryrun_models(dev, gpu, train_ms, decode_ms):
+    """Phase 10: ``dryrun_cells`` (a), ``dryrun_against_card`` (b) and
+    ``gpipe`` (c)."""
+    dryrun_cells(gpu)
+    dryrun_against_card(dev, gpu, train_ms, decode_ms)
+    gpipe(dev, gpu)
+
+
+def dryrun_cells(gpu):
+    """Phase 10a: ``run_roofline_cell`` for the ten archs x the four shapes
+    on the (16, 16) production mesh of ``meta`` entries, a cell a worker
+    process at a time (up to 8, spawned, joined at the end): every cell
+    ``ok``, or ``skip`` with the reference's reason where ``runnable``
+    gives one (``long_500k`` for the archs with full attention). One line
+    a cell: its three terms at 256 H100s, the dominant term, the roofline
+    fraction, and the per-device argument bytes against one card's
+    memory."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import shapes as shp
+
+    t0 = time.monotonic()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    cells = [(a, s) for a in ARCH_IDS for s in shp.SHAPES]
+    # the SSM archs' chunked recurrences trace longest: first in
+    heavy = [c for c in cells if get_config(c[0]).block_pattern != "attn"]
+    order = heavy + [c for c in cells if c not in heavy]
+    workers = min(8, os.cpu_count() or 4)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {c: pool.submit(dr.run_roofline_cell, *c) for c in order}
+        recs = {c: f.result() for c, f in futures.items()}
+    counts = {"ok": 0, "skip": 0}
+    for arch, shape in cells:
+        rec = recs[(arch, shape)]
+        reason = shp.runnable(get_config(arch), shp.SHAPES[shape])
+        want = "skip" if reason else "ok"
+        if rec["status"] != want or rec.get("reason") != reason:
+            fail(f"[dryrun {arch} x {shape}] {rec['status']} "
+                 f"({rec.get('reason') or rec.get('error')}), expected "
+                 f"{want}\n{rec.get('trace', '')}")
+        counts[want] += 1
+        if reason:
+            log(f"[dryrun {arch} x {shape}] skip: {reason}")
+            continue
+        if rec["collective_total"] != 0:
+            fail(f"[dryrun {arch} x {shape}] collective bytes "
+                 f"{rec['collective_bytes']} in a program that moves none")
+        arg = rec["memory"]["argument_bytes"]
+        log(f"[dryrun {arch} x {shape}] {rec['mesh']} ({rec['chips']} "
+            f"H100s): t_compute {rec['t_compute'] * 1e3:.3f} ms, t_memory "
+            f"{rec['t_memory'] * 1e3:.3f} ms (unfused), t_memory_est "
+            f"{rec['t_memory_est'] * 1e3:.3f} ms, t_collective 0 (the "
+            f"sharded model is not ported); dominant {rec['dominant']} "
+            f"(with the estimate: {rec['dominant_est']}); roofline "
+            f"fraction {rec['roofline_fraction']:.4f} (with the estimate "
+            f"{rec['roofline_fraction_est']:.4f}); {rec['hlo_flops']:.4g} "
+            f"FLOP, {rec['hlo_bytes']:.4g} B, model FLOPs "
+            f"{rec['model_flops']:.4g}; argument bytes per device {arg} "
+            f"({arg / card_bytes:.3f} of the card's {card_bytes} B); "
+            f"traces {rec['compile_s']} s")
+    log(f"[dryrun] {counts['ok']} cells ok, {counts['skip']} skipped as the "
+        f"reference skips them, on the (16, 16) mesh of meta entries, in "
+        f"{time.monotonic() - t0:.1f} s ({workers} worker processes; "
+        f"{sum(r.get('compile_s', 0) for r in recs.values()):.1f} s of "
+        f"traces) ({gpu})")
+
+
+def dryrun_against_card(dev, gpu, train_ms, decode_ms):
+    """Phase 10b: ``smollm-360m``'s training step of phase 9a (batch 8 x
+    2048, remat "full") and decode step of phase 8 (batch 4, a cache of
+    48) traced on ``meta`` under ``torch.utils.flop_counter.
+    FlopCounterMode``, then run once for real on the card (weights from
+    seed 0) under the same counter: the two counts must be equal (the
+    meta trace is the program the card runs), ``torch.profiler``'s
+    ``with_flops`` sum printed beside them. Each record then goes to the
+    port's ``RooflinePredictor`` (one chip, no collective bytes), with the
+    unfused bytes of the trace and with the roofline's fused estimate; the
+    predicted step beside the one phases 9a and 8 measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import roofline as rl
+    from repro_torch.core.predictor import RooflinePredictor, RooflineRecord
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.shapes import ShapeSpec
+
+    t0 = time.monotonic()
+    predictor = RooflinePredictor()
+    for spec, measured in ((DRY_TRAIN, train_ms), (DRY_DECODE, decode_ms)):
+        shape = ShapeSpec(*spec)
+        bundle, cfg, _, _ = dr.lower_cell(
+            TRAIN_ARCH, "", make_mesh_for(["meta"], 1), shape=shape)
+        counter = FlopCounterMode(display=False)
+        rec = dr.trace(bundle, modes=(counter,))
+        meta_flops = counter.get_total_flops()
+        del bundle
+        card, *_ = dr.lower_cell(TRAIN_ARCH, "", make_mesh_for([dev], 1),
+                                 shape=shape, device=dev)
+        with FlopCounterMode(display=False) as counter:
+            card.fn(*card.args)
+            torch.cuda.synchronize()
+        card_flops = counter.get_total_flops()
+        # apart: under a dispatch mode the profiler sees each op twice
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            card.fn(*card.args)
+            torch.cuda.synchronize()
+        prof_flops = sum(e.flops for e in prof.key_averages())
+        del card, prof
+        torch.cuda.empty_cache()
+        log(f"[dryrun card {shape.name}] {TRAIN_ARCH} {shape.kind} step "
+            f"(batch {shape.global_batch}, {shape.seq_len} positions): "
+            f"FlopCounterMode counts {meta_flops} FLOP traced on meta, "
+            f"{card_flops} run on the card; the dry run's counter "
+            f"{rec['flops']:.0f} FLOP, {rec['bytes']:.0f} B unfused; "
+            f"torch.profiler with_flops {prof_flops} ({gpu})")
+        if meta_flops != card_flops or rec["flops"] != meta_flops:
+            fail(f"[dryrun card {shape.name}] the meta trace's "
+                 f"{meta_flops} FLOP (dry-run counter {rec['flops']}) are "
+                 f"not the card's {card_flops}")
+        est = rl.estimate_hbm_bytes(cfg, shape, shape.kind)
+        for name, nbytes in (("unfused bytes", rec["bytes"]),
+                             ("fused estimate", est)):
+            key = f"{shape.name} {name}"
+            predictor.add(key, RooflineRecord(rec["flops"], nbytes, 0.0, 1))
+            ms = predictor.predict(key) * 1e3
+            log(f"[dryrun card {shape.name}] predicted with the {name} "
+                f"({nbytes:.4g} B): {ms:.3f} ms (compute "
+                f"{rec['flops'] / rl.PEAK_FLOPS * 1e3:.3f} ms at "
+                f"{rl.PEAK_FLOPS / 1e12:.0f} TFLOP/s, memory "
+                f"{nbytes / rl.HBM_BW * 1e3:.3f} ms at "
+                f"{rl.HBM_BW / 1e12:.2f} TB/s); measured {measured:.3f} ms "
+                f"(phase {9 if shape.kind == 'train' else 8}); measured / "
+                f"predicted {measured / ms:.3f} ({gpu})")
+    log(f"[dryrun card] took {time.monotonic() - t0:.1f} s")
+
+
+def gpipe(dev, gpu):
+    """Phase 10c: ``pp_loss_fn`` for ``smollm-360m`` at full width and depth
+    (32 layers, d_model 960) in float32, remat "none", weights from seed
+    0, a batch of 8 x 512 seeded tokens, on a ("data", "stage") (1, 4)
+    mesh whose entries are all the card, 4 microbatches, against the
+    unstaged ``Model.loss`` on the same card and weights: the loss within
+    2e-4 (``tests/test_distributed.py``'s rule); every gradient leaf,
+    against the unstaged step's in float64, within ``card_grad_rtol`` of
+    its largest, a rule the unstaged float32 step's own error sets (at
+    this width float32 parts from float64 by about 1e-2 of a leaf's
+    largest on any device, and pipelining only reorders float32 sums);
+    the bytes hopped between stages equal to the formula. Each step's ms
+    (forward and backward, CUDA events) and peak memory beside the peak
+    the dry run's counter reckons from a ``meta`` trace of the same
+    step, and the schedule's bubble."""
+    import numpy as np
+    import torch
+    from _model_cases import card_grad_rtol, grad_error
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.launch.steps import StepBundle
+    from repro_torch.models.pipeline import STAGE_AXIS, pp_loss_fn
+    from repro_torch.models.transformer import Model
+
+    t0 = time.monotonic()
+    cfg = get_config(TRAIN_ARCH).replace(dtype="float32", remat="none")
+    rng = np.random.default_rng(0)
+    tokens = {k: rng.integers(0, cfg.vocab_size, (PP_B, PP_S))
+              for k in ("tokens", "labels")}
+
+    def step(model, device, staged):
+        """The step (loss and its gradients) on ``device``, and its mesh."""
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in tokens.items()}
+        mesh = DeviceMesh(np.full((1, PP_STAGES), torch.device(device),
+                                  dtype=object), ("data", STAGE_AXIS))
+        loss_fn = (pp_loss_fn(model, mesh, PP_MICRO) if staged
+                   else model.loss)
+        weights = list(model.parameters())
+
+        def run():
+            loss, _ = loss_fn(batch)
+            return loss.detach(), torch.autograd.grad(loss, weights)
+        return run, mesh
+
+    # the peak the dry run's counter reckons for each step: its
+    # allocations at most, beside the parameters
+    reckoned = {}
+    meta = Model(cfg, device="meta", trainable=True)
+    for staged in (True, False):
+        run, _ = step(meta, "meta", staged)
+        rec = dr.trace(StepBundle(run, (), (), None))
+        reckoned[staged] = rec["temp_bytes"] + sum(
+            w.numel() * 4 for w in meta.parameters())
+    del meta
+
+    model = Model(cfg, seed=0, device=dev, trainable=True)
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for staged in (True, False):
+        run, mesh = step(model, dev, staged)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss, grads = run()
+        peak = torch.cuda.max_memory_allocated(dev)
+        hops = dict(mesh.hops)
+        ms = time_ms(run, reps=3)
+        out[staged] = (loss, grads, ms, peak, hops)
+    c64 = cfg.replace(dtype="float64", param_dtype="float64")
+    run64, _ = step(Model(c64, device=dev, trainable=True,
+                          params=model.params()), dev, False)
+    del model
+    torch.cuda.empty_cache()
+    _, g64 = run64()
+    del run64
+    loss, grads, ms, peak, hops = out[True]
+    base, base_grads, base_ms, base_peak, _ = out[False]
+    K, act = PP_STAGES, PP_B * PP_S * cfg.d_model * 4
+    formula = {"collective-permute": (K - 1) * act, "all-reduce": K * act}
+    e_pp = {n: grad_error(g.double(), w) for n, g, w in
+            zip(names, grads, g64)}
+    e_base = {n: grad_error(g.double(), w) for n, g, w in
+              zip(names, base_grads, g64)}
+    rtol = {n: card_grad_rtol(e_base[n], cfg.num_layers) for n in names}
+    worst = max(names, key=lambda n: e_pp[n] / rtol[n])
+    err = abs(float(loss) - float(base))
+    bubble = (K - 1) / (PP_MICRO + K - 1)
+    gib = 2 ** 30
+    log(f"[gpipe {TRAIN_ARCH}] {cfg.num_layers} layers at d_model "
+        f"{cfg.d_model}, float32, remat none, batch {PP_B} x {PP_S}, "
+        f"{K} stages on a (1, {K}) (data, stage) mesh of {dev}, "
+        f"{PP_MICRO} microbatches: loss {float(loss):.6f} against the "
+        f"unstaged {float(base):.6f}, |diff| {err:.3g} (rule 2e-4); "
+        f"gradients against the unstaged step in float64: the worst leaf "
+        f"against its rule {worst} {e_pp[worst]:.3g} of its largest "
+        f"(card_grad_rtol {rtol[worst]:.3g}; the unstaged float32 step's "
+        f"own {e_base[worst]:.3g}), the largest errors pipelined "
+        f"{max(e_pp.values()):.3g}, unstaged {max(e_base.values()):.3g} "
+        f"({gpu})")
+    log(f"[gpipe {TRAIN_ARCH}] a step (forward and backward, CUDA events, "
+        f"3 warm) {ms:.2f} ms pipelined, {base_ms:.2f} ms unstaged; peak "
+        f"memory {peak / gib:.3f} GiB pipelined, {base_peak / gib:.3f} GiB "
+        f"unstaged, reckoned from a meta trace {reckoned[True] / gib:.3f} "
+        f"and {reckoned[False] / gib:.3f} GiB; bubble (K - 1) / (n_micro + "
+        f"K - 1) = {bubble:.4f} of each stage's ticks (on one card the "
+        f"stages run one after another, so no tick overlaps another); "
+        f"bytes between stages {hops} against the formula {formula} "
+        f"({gpu})")
+    if err > 2e-4:
+        fail(f"[gpipe {TRAIN_ARCH}] pipelined loss {float(loss)} against "
+             f"the unstaged {float(base)}")
+    if e_pp[worst] > rtol[worst]:
+        fail(f"[gpipe {TRAIN_ARCH}] gradient {worst} off float64 by "
+             f"{e_pp[worst]} of its largest, past {rtol[worst]}")
+    if hops != formula:
+        fail(f"[gpipe {TRAIN_ARCH}] hop bytes {hops}, formula {formula}")
+    del out, grads, base_grads, g64
+    torch.cuda.empty_cache()
+    log(f"[gpipe] took {time.monotonic() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2786,12 +3129,16 @@ def main(argv=None) -> int:
     lap("7")
 
     # 8. the dense, MoE and SSM model families at full width -----------------
-    serve_models(dev, gpu)
+    decode_ms = serve_models(dev, gpu)
     lap("8")
 
     # 9. training -------------------------------------------------------------
-    train_models(dev, gpu)
+    step_ms = train_models(dev, gpu)
     lap("9")
+
+    # 10. the dry run, its roofline against the card, GPipe ------------------
+    dryrun_models(dev, gpu, step_ms, decode_ms[TRAIN_ARCH])
+    lap("10")
     log(f"[time] the whole run: {time.monotonic() - laps[0]:.1f} s")
 
     log(json.dumps({"kernels": entries}))

@@ -25,6 +25,7 @@ import torch
 from repro_torch.cluster.catalog import Cluster
 from repro_torch.core.dag import TaskOption
 from repro_torch.device import FLOAT, resolve_device
+from repro_torch.roofline import HBM_BW, NVLINK_BW, PEAK_FLOPS
 
 
 # ---------------------------------------------------------------------------
@@ -156,12 +157,8 @@ def ernest_select(options: Sequence[TaskOption], goal: str) -> int:
 # Roofline predictor, with the H100's constants
 # ---------------------------------------------------------------------------
 
-# One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): the dense
-# bf16 tensor-core peak, as chip_smoke.py quotes the card's peaks; HBM3; and
-# NVLink at 450 GB/s each way in place of the TPU's ICI.
-PEAK_FLOPS = 989e12
-HBM_BW = 3.35e12
-NVLINK_BW = 450e9
+# One NVIDIA H100 SXM's peaks (repro_torch/roofline.py, their one home):
+# NVLink in place of the TPU's ICI.
 
 
 @dataclasses.dataclass(frozen=True)

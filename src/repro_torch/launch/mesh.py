@@ -1,15 +1,20 @@
-"""Device meshes for the sharded planner (PyTorch port of the JAX
-package's ``launch/mesh.py``, its planner and solver meshes).
+"""Device meshes (PyTorch port of the JAX package's ``launch/mesh.py``):
+the model substrate's production meshes and the planner's and solver's.
 
 A mesh here is a grid of ``torch.device``s with named axes, driven by one
 process: ``core/vectorized.py`` runs each shard of a solve on its entry's
-device and steps every shard sweep by sweep, as the reference's single
-controller drives every device of a ``jax.sharding.Mesh``. No process
-group is formed. The same device may fill several entries, so one card,
-or the CPU, can run a (2, 1) or (1, 2) mesh; that changes no result.
+device and steps every shard sweep by sweep, and
+``models/pipeline.py`` runs each pipeline stage on its entry's device,
+as the reference's single controller drives every device of a
+``jax.sharding.Mesh``. No process group is formed. The same device may
+fill several entries, so one card, or the CPU, can run a (2, 1) or (1,
+2) mesh; that changes no result. A mesh of ``"meta"`` entries is the
+dry run's stand-in for the reference's placeholder devices
+(``--xla_force_host_platform_device_count``): it has the production
+shape, and nothing runs on it (``launch/dryrun.py``). A mesh's
+``hops`` counts the bytes moved between its entries
+(``DeviceMesh.hop``).
 
-The model substrate's production meshes (``make_production_mesh``,
-``make_mesh_for``) are not ported yet (ROADMAP.md, Queue 1, item 10).
 Nothing here touches a device when the module is imported.
 """
 from __future__ import annotations
@@ -34,6 +39,21 @@ class DeviceMesh:
                              f"axis names, got {tuple(axis_names)}")
         self.devices = grid
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.hops: Dict[str, int] = {}
+
+    def hop(self, x: torch.Tensor, device, kind: str = "collective-permute"
+            ) -> torch.Tensor:
+        """``x`` copied to ``device`` (an entry's), a copy even where the
+        entry is ``x``'s own device, as a transfer between two entries is;
+        autograd flows through it. Its bytes are added to ``hops[kind]``,
+        the reference's count of a collective: each participant's output
+        bytes."""
+        self.count(kind, x.numel() * x.element_size())
+        return x.to(device, copy=True)
+
+    def count(self, kind: str, nbytes: int) -> None:
+        """Add ``nbytes`` to ``hops[kind]``."""
+        self.hops[kind] = self.hops.get(kind, 0) + int(nbytes)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -60,6 +80,43 @@ def _devices(devices: Optional[Sequence]) -> list:
         return [resolve_device(d) for d in devices]
     resolve_device("cuda")
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _grid(shape, axes, devices: Optional[Sequence]) -> DeviceMesh:
+    """A mesh of ``shape`` over ``devices`` (every CUDA card unless given;
+    a list may name one device more than once), which must fill it."""
+    devs = _devices(devices)
+    n = int(np.prod(shape))
+    if len(devs) != n:
+        raise ValueError(f"a {shape} mesh needs {n} devices, got "
+                         f"{len(devs)}")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devs
+    return DeviceMesh(grid.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> DeviceMesh:
+    """Single pod: (16, 16) = 256 entries on ("data", "model"). Multi-pod:
+    (2, 16, 16) = 512 on ("pod", "data", "model"); the pod axis carries
+    the cross-pod data-parallel replica dimension. ``devices`` (256 or
+    512 of them) defaults to every CUDA card, as the reference's defaults
+    to every JAX device; the dry run passes ``["meta"] * n``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _grid(shape, axes, devices)
+
+
+def make_mesh_for(devices: Sequence, model_parallel: int = 1) -> DeviceMesh:
+    """Elastic-scaling helper: the (data, model) mesh over ``devices``,
+    which may name one device more than once (the reference's takes a
+    count of the process's JAX devices)."""
+    devs = _devices(devices)
+    if model_parallel < 1 or len(devs) % model_parallel:
+        raise ValueError(f"{len(devs)} devices do not split into model "
+                         f"shards of {model_parallel}")
+    return _grid((len(devs) // model_parallel, model_parallel),
+                 ("data", "model"), devs)
 
 
 def make_solver_mesh(devices: Optional[Sequence] = None) -> DeviceMesh:

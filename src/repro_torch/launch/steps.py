@@ -4,16 +4,32 @@
 The reference's steps are pure functions of (params, state, batch) that it
 jits; here the model owns its parameters, so a train step takes the
 optimizer state and a batch, updates the model's parameters in place and
-returns the new state. The dry run's pieces (``abstract_opt_state``,
-``sharding_of``, ``StepBundle``) wait for the model meshes.
+returns the new state. The dry run's pieces are here too: ``StepBundle``,
+``abstract_opt_state`` and ``sharding_of``. The reference's abstract
+arguments carry their shardings; torch tensors carry none, so the port's
+abstract builders return a tree of specs (``models/common.P``) beside the
+``meta`` tensors, and ``sharding_of`` pairs the two.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Tuple
+
 import torch
 
+from repro_torch.models.common import P
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw
 from repro_torch.tree import leaves, map_tree
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """Everything needed to trace one (arch x shape x mesh) cell."""
+    fn: Any                      # the step callable
+    args: Tuple[Any, ...]        # abstract (or concrete) arguments
+    in_shardings: Any            # a spec tree for each of ``args``
+    out_shardings: Any
 
 
 def _on(model: Model, batch):
@@ -83,3 +99,33 @@ def make_serve_step(model: Model):
         logits, cache = model.decode_step(cache, batch, cache_index)
         return logits[:, 0], cache
     return serve_step
+
+
+def abstract_opt_state(params, param_specs):
+    """The ``OptState`` of ``params`` on ``meta`` (its moments empty meta
+    tensors of the parameters' shapes and dtypes, its step and its
+    error-feedback leaves 0-d, as the reference's ``abstract_opt_state``
+    makes them), and beside it the ``OptState`` of their specs: the
+    moments mirror ``param_specs``, the scalars are replicated."""
+    def like(x):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    state = adamw.OptState(
+        torch.empty((), dtype=torch.int32, device="meta"),
+        map_tree(like, params), map_tree(like, params),
+        map_tree(lambda x: torch.empty((), dtype=x.dtype, device="meta"),
+                 params))
+    specs = adamw.OptState(P(), param_specs, param_specs,
+                           map_tree(lambda _: P(), params))
+    return state, specs
+
+
+def sharding_of(tree, specs):
+    """The spec tree of ``tree``: ``specs`` checked against it leaf for
+    leaf (the same structure, one spec a leaf of as many entries as the
+    leaf has dimensions) and returned mirroring it."""
+    def check(leaf, spec):
+        if not isinstance(spec, P) or len(spec) != leaf.dim():
+            raise ValueError(f"spec {spec!r} for a leaf of shape "
+                             f"{tuple(leaf.shape)}")
+        return spec
+    return map_tree(check, tree, specs)

@@ -5,19 +5,30 @@ Every assigned architecture is expressed as one ``ModelConfig``, the
 reference's own fields; ``cdtype`` and ``pdtype`` are torch dtypes here.
 Parameters are nested dicts of tensors, drawn by ``Initializer`` from an
 explicit ``torch.Generator`` on the card (or the CPU where the caller asks
-for it) with the reference's init kinds and scales. The mesh rules (``spec_for``, ``tree_specs``, the
-axis names) wait for the sharded path.
+for it) with the reference's init kinds and scales.
+
+The mesh rules are the reference's: the axis names (``DATA_AXES``,
+``TP_AXIS``), the logical-axis table (``_phys``) and ``spec_for``, which
+read only a mesh's ``axis_names`` and ``shape`` and so take the port's
+``launch/mesh.py:DeviceMesh``. ``P`` stands in for JAX's
+``PartitionSpec``: a tuple with one entry a dimension (a mesh axis name, a
+tuple of names, or None). The port runs a model on one device and shards
+nothing at run time; the specs say how the reference lays each leaf out,
+and the dry run divides each argument's bytes by them
+(``launch/dryrun.py``). An abstract ``Initializer`` (``abstract=True``,
+or ``device="meta"``) draws nothing: every leaf is an empty tensor on the
+``meta`` device, its spec recorded under the reference's path.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import leaves
+from repro_torch.tree import flatten, leaves, map_tree
 
 # ---------------------------------------------------------------------------
 # Config
@@ -106,6 +117,87 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Mesh axis conventions
+# ---------------------------------------------------------------------------
+
+DATA_AXES: Tuple[str, ...] = ("pod", "data")  # pod axis absent on single-pod
+TP_AXIS = "model"
+
+
+class P(tuple):
+    """A partition spec: one entry a dimension of the array, each a mesh
+    axis name, a tuple of names, or None (replicated), as JAX's
+    ``PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in DATA_AXES if a in mesh.axis_names)
+
+
+def axis_size(mesh, name: str) -> int:
+    if mesh is None or name not in mesh.axis_names:
+        return 1
+    return mesh.shape[name]
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis -> partition spec rules
+# ---------------------------------------------------------------------------
+
+# Logical axis vocabulary used by param initializers.
+#   "embed"    : d_model            -> replicated
+#   "vocab"    : vocabulary          -> model
+#   "heads"    : attention heads     -> model
+#   "kv_heads" : kv heads            -> model if divisible else replicated
+#   "mlp"      : ffn hidden          -> model
+#   "experts"  : MoE experts         -> model (expert parallel)
+#   "inner"    : ssm inner dim       -> model
+#   "layers"   : stacked scan dim    -> replicated
+#   None       : replicated
+
+
+def _phys(logical: str, mesh, dim: int):
+    if mesh is None:
+        return None
+    if logical in ("vocab", "heads", "mlp", "experts", "inner", "kv_heads"):
+        m = axis_size(mesh, TP_AXIS)
+        return TP_AXIS if (m > 1 and dim % m == 0) else None
+    return None
+
+
+def spec_for(logical_axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
+             mesh) -> P:
+    """The spec of an array of ``shape`` whose dimensions carry
+    ``logical_axes``: each logical axis on its mesh axis where that axis
+    is larger than 1 and divides the dimension, one mesh axis at most once
+    a spec."""
+    assert len(logical_axes) == len(shape), (logical_axes, shape)
+    used = set()
+    out = []
+    for ax, dim in zip(logical_axes, shape):
+        p = _phys(ax, mesh, dim) if ax else None
+        if p in used:  # one mesh axis at most once per spec
+            p = None
+        if p:
+            used.add(p)
+        out.append(p)
+    return P(*out)
+
+
+def tree_specs(specs: Dict[str, Any], tree) -> Any:
+    """A tree of specs mirroring ``tree`` from a flat path map, each leaf's
+    path its keys joined by "/"."""
+    paths = iter(path for path, _ in flatten(tree))
+    return map_tree(lambda _: specs[next(paths)], tree)
+
+
+# ---------------------------------------------------------------------------
 # Param init
 # ---------------------------------------------------------------------------
 
@@ -119,15 +211,27 @@ class Initializer:
     leading axis at a time, cast as they come, so a stacked leaf never
     stands whole in float32. torch's generator gives other numbers than
     ``jax.random`` from the same seed; tests carry the reference's
-    parameters across (``models/convert.py``)."""
+    parameters across (``models/convert.py``).
 
-    def __init__(self, cfg: ModelConfig, seed: int = 0, device=None,
-                 dtype=None):
+    Each leaf's spec on ``mesh`` (None: every entry None) goes into
+    ``specs``, under the leaf's path, as the reference's does. With
+    ``abstract=True`` or a ``meta`` device nothing is drawn and no
+    generator made (one cannot live on ``meta``): every leaf is an empty
+    ``meta`` tensor of its shape and dtype, at any size."""
+
+    def __init__(self, cfg: ModelConfig, mesh=None, abstract: bool = False,
+                 seed: int = 0, device=None, dtype=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = torch.device("meta") if abstract else \
+            resolve_device(device)
+        self.abstract = self.device.type == "meta"
         self.dtype = cfg.pdtype if dtype is None else dtype
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.specs: Dict[str, P] = {}
+        self.generator = None
+        if not self.abstract:
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(seed)
 
     def _draw(self, shape, fill, dtype):
         out = torch.empty(shape, dtype=dtype, device=self.device)
@@ -140,20 +244,27 @@ class Initializer:
             sh, generator=self.generator, dtype=torch.float32,
             device=self.device) * s, dtype)
 
-    def param(self, path: str, shape, init="normal", scale=None, dtype=None):
-        """One leaf. ``path`` names it, as the reference's does. A stacked
-        leaf (leading layer axis, or zamba2's (G, M) group axes) takes its
-        fan-in from its first axis, as the reference's does. ``dtype``
-        overrides the drawn leaves' dtype for a leaf the model keeps in
-        another (the MoE router, RWKV6's decay path and bonus)."""
+    def param(self, path: str, shape, logical=None, init="normal",
+              scale=None, dtype=None):
+        """One leaf. ``path`` names it, as the reference's does, and
+        ``logical`` names its dimensions' logical axes (None: all
+        replicated). A stacked leaf (leading layer axis, or zamba2's (G,
+        M) group axes) takes its fan-in from its first axis, as the
+        reference's does. ``dtype`` overrides the drawn leaves' dtype for
+        a leaf the model keeps in another (the MoE router, RWKV6's decay
+        path and bonus)."""
         shape = tuple(int(s) for s in shape)
+        logical = (None,) * len(shape) if logical is None else tuple(logical)
+        self.specs[path] = spec_for(logical, shape, self.mesh)
         drawn = self.dtype if dtype is None else dtype
+        if init in ("zeros", "ones"):
+            drawn = self.cfg.pdtype
+        if self.abstract:
+            return torch.empty(shape, dtype=drawn, device=self.device)
         if init == "zeros":
-            return torch.zeros(shape, dtype=self.cfg.pdtype,
-                               device=self.device)
+            return torch.zeros(shape, dtype=drawn, device=self.device)
         if init == "ones":
-            return torch.ones(shape, dtype=self.cfg.pdtype,
-                              device=self.device)
+            return torch.ones(shape, dtype=drawn, device=self.device)
         if init == "normal":
             fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
             return self._normal(shape, scale if scale is not None

@@ -35,7 +35,9 @@ def wide(x):
 
 
 def init_rmsnorm(ini: Initializer, path: str, dim: int, stack=()):
-    return {"scale": ini.param(f"{path}/scale", (*stack, dim), init="ones")}
+    L = ("layers",) * len(stack)
+    return {"scale": ini.param(f"{path}/scale", (*stack, dim), (*L, None),
+                               init="ones")}
 
 
 def rmsnorm(p, x, eps: float, fast: bool = False):
@@ -119,12 +121,17 @@ def attention_core(q, k, v, *, causal: bool, q_offset=0, chunk: int = 0,
 
 
 def init_attention(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
+    L = ("layers",) * len(stack)
     d, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
-        "wq": ini.param(f"{path}/wq", (*stack, d, H, Dh)),
-        "wk": ini.param(f"{path}/wk", (*stack, d, KH, Dh)),
-        "wv": ini.param(f"{path}/wv", (*stack, d, KH, Dh)),
+        "wq": ini.param(f"{path}/wq", (*stack, d, H, Dh),
+                        (*L, None, "heads", None)),
+        "wk": ini.param(f"{path}/wk", (*stack, d, KH, Dh),
+                        (*L, None, "kv_heads", None)),
+        "wv": ini.param(f"{path}/wv", (*stack, d, KH, Dh),
+                        (*L, None, "kv_heads", None)),
         "wo": ini.param(f"{path}/wo", (*stack, H, Dh, d),
+                        (*L, "heads", None, None),
                         scale=1.0 / math.sqrt(H * Dh)),
     }
 
@@ -167,14 +174,19 @@ def init_cross_attention(ini: Initializer, path: str, cfg: ModelConfig,
                          stack=()):
     """The projections, as self-attention's, and the scalar ``gate``,
     zeros: a freshly drawn cross-attention adds nothing."""
+    L = ("layers",) * len(stack)
     d, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
-        "wq": ini.param(f"{path}/wq", (*stack, d, H, Dh)),
-        "wk": ini.param(f"{path}/wk", (*stack, d, KH, Dh)),
-        "wv": ini.param(f"{path}/wv", (*stack, d, KH, Dh)),
+        "wq": ini.param(f"{path}/wq", (*stack, d, H, Dh),
+                        (*L, None, "heads", None)),
+        "wk": ini.param(f"{path}/wk", (*stack, d, KH, Dh),
+                        (*L, None, "kv_heads", None)),
+        "wv": ini.param(f"{path}/wv", (*stack, d, KH, Dh),
+                        (*L, None, "kv_heads", None)),
         "wo": ini.param(f"{path}/wo", (*stack, H, Dh, d),
+                        (*L, "heads", None, None),
                         scale=1.0 / math.sqrt(H * Dh)),
-        "gate": ini.param(f"{path}/gate", stack, init="zeros"),
+        "gate": ini.param(f"{path}/gate", stack, L, init="zeros"),
     }
 
 
@@ -205,17 +217,24 @@ def cross_attention(p, x, patches, cfg: ModelConfig, *, kv_cache=None):
 def init_mla(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
     """The MLA projections; ``kv_norm`` is the RMSNorm scale of the latent
     ``c_kv`` (ones, in ``cfg.pdtype``, as the norms' scales are)."""
+    L = ("layers",) * len(stack)
     d, H = cfg.d_model, cfg.num_heads
     r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
     return {
-        "wq": ini.param(f"{path}/wq", (*stack, d, H, dn + dr)),
-        "wkv_a": ini.param(f"{path}/wkv_a", (*stack, d, r)),
-        "wk_rope": ini.param(f"{path}/wk_rope", (*stack, d, dr)),
-        "kv_norm": ini.param(f"{path}/kv_norm", (*stack, r), init="ones"),
-        "wk_b": ini.param(f"{path}/wk_b", (*stack, r, H, dn)),
-        "wv_b": ini.param(f"{path}/wv_b", (*stack, r, H, dv)),
+        "wq": ini.param(f"{path}/wq", (*stack, d, H, dn + dr),
+                        (*L, None, "heads", None)),
+        "wkv_a": ini.param(f"{path}/wkv_a", (*stack, d, r), (*L, None, None)),
+        "wk_rope": ini.param(f"{path}/wk_rope", (*stack, d, dr),
+                             (*L, None, None)),
+        "kv_norm": ini.param(f"{path}/kv_norm", (*stack, r), (*L, None),
+                             init="ones"),
+        "wk_b": ini.param(f"{path}/wk_b", (*stack, r, H, dn),
+                          (*L, None, "heads", None)),
+        "wv_b": ini.param(f"{path}/wv_b", (*stack, r, H, dv),
+                          (*L, None, "heads", None)),
         "wo": ini.param(f"{path}/wo", (*stack, H, dv, d),
+                        (*L, "heads", None, None),
                         scale=1.0 / math.sqrt(H * dv)),
     }
 
@@ -294,10 +313,13 @@ def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
 
 
 def init_mlp(ini: Initializer, path: str, d: int, d_ff: int, stack=()):
+    L = ("layers",) * len(stack)
     return {
-        "w_gate": ini.param(f"{path}/w_gate", (*stack, d, d_ff)),
-        "w_up": ini.param(f"{path}/w_up", (*stack, d, d_ff)),
+        "w_gate": ini.param(f"{path}/w_gate", (*stack, d, d_ff),
+                            (*L, None, "mlp")),
+        "w_up": ini.param(f"{path}/w_up", (*stack, d, d_ff), (*L, None, "mlp")),
         "w_down": ini.param(f"{path}/w_down", (*stack, d_ff, d),
+                            (*L, "mlp", None),
                             scale=1.0 / math.sqrt(d_ff)),
     }
 

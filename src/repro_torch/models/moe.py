@@ -37,13 +37,15 @@ def init_moe(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
     """The router (d, E), kept in ``cfg.pdtype`` because routing runs in
     float32, and the experts' ``w_gate``, ``w_up`` (E, d, f) and
     ``w_down`` (E, f, d), with a leading ``stack`` of layers."""
+    L = ("layers",) * len(stack)
+    experts = (*L, "experts", None, None)
     d, E, f = cfg.d_model, cfg.num_experts, cfg.d_ff_expert
     return {
-        "router": ini.param(f"{path}/router", (*stack, d, E), scale=0.02,
-                            dtype=cfg.pdtype),
-        "w_gate": ini.param(f"{path}/w_gate", (*stack, E, d, f)),
-        "w_up": ini.param(f"{path}/w_up", (*stack, E, d, f)),
-        "w_down": ini.param(f"{path}/w_down", (*stack, E, f, d),
+        "router": ini.param(f"{path}/router", (*stack, d, E), (*L, None, None),
+                            scale=0.02, dtype=cfg.pdtype),
+        "w_gate": ini.param(f"{path}/w_gate", (*stack, E, d, f), experts),
+        "w_up": ini.param(f"{path}/w_up", (*stack, E, d, f), experts),
+        "w_down": ini.param(f"{path}/w_down", (*stack, E, f, d), experts,
                             scale=1.0 / math.sqrt(f)),
     }
 

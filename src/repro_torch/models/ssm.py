@@ -35,21 +35,28 @@ def mamba2_dims(cfg: ModelConfig):
 
 
 def init_mamba2(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
+    L = ("layers",) * len(stack)
+    inner = (*L, "inner")
     d = cfg.d_model
     d_inner, H, conv_dim = mamba2_dims(cfg)
     proj_out = 2 * d_inner + 2 * cfg.ssm_state + H  # z, x, B, C, dt
     return {
-        "in_proj": ini.param(f"{path}/in_proj", (*stack, d, proj_out)),
+        "in_proj": ini.param(f"{path}/in_proj", (*stack, d, proj_out),
+                             (*L, None, "inner")),
         "conv_w": ini.param(f"{path}/conv_w", (*stack, cfg.conv_kernel,
                                                 conv_dim),
+                            (*L, None, "inner"),
                             scale=1.0 / math.sqrt(cfg.conv_kernel)),
-        "conv_b": ini.param(f"{path}/conv_b", (*stack, conv_dim),
+        "conv_b": ini.param(f"{path}/conv_b", (*stack, conv_dim), inner,
                             init="zeros"),
-        "a_log": ini.param(f"{path}/a_log", (*stack, H), init="zeros"),
-        "dt_bias": ini.param(f"{path}/dt_bias", (*stack, H), init="zeros"),
-        "d_skip": ini.param(f"{path}/d_skip", (*stack, H), init="ones"),
-        "norm": ini.param(f"{path}/norm", (*stack, d_inner), init="ones"),
+        "a_log": ini.param(f"{path}/a_log", (*stack, H), inner, init="zeros"),
+        "dt_bias": ini.param(f"{path}/dt_bias", (*stack, H), inner,
+                             init="zeros"),
+        "d_skip": ini.param(f"{path}/d_skip", (*stack, H), inner, init="ones"),
+        "norm": ini.param(f"{path}/norm", (*stack, d_inner), inner,
+                          init="ones"),
         "out_proj": ini.param(f"{path}/out_proj", (*stack, d_inner, d),
+                              (*L, "inner", None),
                               scale=1.0 / math.sqrt(d_inner)),
     }
 
@@ -138,43 +145,48 @@ def init_rwkv6_tm(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
     d = cfg.d_model
     H, hd = rwkv6_dims(cfg)
     n, rm, rd = _STREAMS, _LORA_MIX, _LORA_DECAY
+    L = ("layers",) * len(stack)
+    vec, mat, into = (*L, None), (*L, None, None), (*L, None, "inner")
     return {
-        "mu_base": ini.param(f"{path}/mu_base", (*stack, d), init="uniform",
-                             scale=0.5),
-        "mu": ini.param(f"{path}/mu", (*stack, n, d), init="uniform",
+        "mu_base": ini.param(f"{path}/mu_base", (*stack, d), vec,
+                             init="uniform", scale=0.5),
+        "mu": ini.param(f"{path}/mu", (*stack, n, d), mat, init="uniform",
                         scale=0.5),
-        "mix_w1": ini.param(f"{path}/mix_w1", (*stack, d, n * rm),
+        "mix_w1": ini.param(f"{path}/mix_w1", (*stack, d, n * rm), mat,
                             scale=0.02),
-        "mix_w2": ini.param(f"{path}/mix_w2", (*stack, n, rm, d), scale=0.02),
-        "wr": ini.param(f"{path}/wr", (*stack, d, d)),
-        "wk": ini.param(f"{path}/wk", (*stack, d, d)),
-        "wv": ini.param(f"{path}/wv", (*stack, d, d)),
-        "wg": ini.param(f"{path}/wg", (*stack, d, d)),
-        "w0": ini.param(f"{path}/w0", (*stack, d), init="uniform", scale=1.0,
-                        dtype=cfg.pdtype),
-        "decay_w1": ini.param(f"{path}/decay_w1", (*stack, d, rd),
+        "mix_w2": ini.param(f"{path}/mix_w2", (*stack, n, rm, d),
+                            (*L, None, None, None), scale=0.02),
+        "wr": ini.param(f"{path}/wr", (*stack, d, d), into),
+        "wk": ini.param(f"{path}/wk", (*stack, d, d), into),
+        "wv": ini.param(f"{path}/wv", (*stack, d, d), into),
+        "wg": ini.param(f"{path}/wg", (*stack, d, d), into),
+        "w0": ini.param(f"{path}/w0", (*stack, d), vec, init="uniform",
+                        scale=1.0, dtype=cfg.pdtype),
+        "decay_w1": ini.param(f"{path}/decay_w1", (*stack, d, rd), mat,
                               scale=0.02, dtype=cfg.pdtype),
-        "decay_w2": ini.param(f"{path}/decay_w2", (*stack, rd, d),
+        "decay_w2": ini.param(f"{path}/decay_w2", (*stack, rd, d), mat,
                               scale=0.02, dtype=cfg.pdtype),
-        "u": ini.param(f"{path}/u", (*stack, H, hd), init="uniform",
-                       scale=0.5, dtype=cfg.pdtype),
-        "ln_scale": ini.param(f"{path}/ln_scale", (*stack, d), init="ones"),
-        "wo": ini.param(f"{path}/wo", (*stack, d, d),
+        "u": ini.param(f"{path}/u", (*stack, H, hd), (*L, "inner", None),
+                       init="uniform", scale=0.5, dtype=cfg.pdtype),
+        "ln_scale": ini.param(f"{path}/ln_scale", (*stack, d), vec,
+                              init="ones"),
+        "wo": ini.param(f"{path}/wo", (*stack, d, d), (*L, "inner", None),
                         scale=1.0 / math.sqrt(d)),
     }
 
 
 def init_rwkv6_cm(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
     d, f = cfg.d_model, cfg.d_ff
+    L = ("layers",) * len(stack)
     return {
-        "mu_k": ini.param(f"{path}/mu_k", (*stack, d), init="uniform",
-                          scale=0.5),
-        "mu_r": ini.param(f"{path}/mu_r", (*stack, d), init="uniform",
-                          scale=0.5),
-        "wk": ini.param(f"{path}/wk", (*stack, d, f)),
-        "wv": ini.param(f"{path}/wv", (*stack, f, d),
+        "mu_k": ini.param(f"{path}/mu_k", (*stack, d), (*L, None),
+                          init="uniform", scale=0.5),
+        "mu_r": ini.param(f"{path}/mu_r", (*stack, d), (*L, None),
+                          init="uniform", scale=0.5),
+        "wk": ini.param(f"{path}/wk", (*stack, d, f), (*L, None, "mlp")),
+        "wv": ini.param(f"{path}/wv", (*stack, f, d), (*L, "mlp", None),
                         scale=1.0 / math.sqrt(f)),
-        "wr": ini.param(f"{path}/wr", (*stack, d, d)),
+        "wr": ini.param(f"{path}/wr", (*stack, d, d), (*L, None, None)),
     }
 
 

@@ -58,7 +58,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.common import Initializer, ModelConfig, unstack
+from repro_torch.models.common import (TP_AXIS, Initializer, ModelConfig, P,
+                                      axis_size, data_axes, tree_specs,
+                                      unstack)
+from repro_torch.tree import flatten
 
 # the leaves a block keeps in cfg.param_dtype: the norms' scales, the
 # router, which routes in float32, and the SSM leaves the reference reads in
@@ -155,25 +158,65 @@ def _init_blocks(ini, cfg: ModelConfig):
     return out
 
 
+def _init(ini, cfg: ModelConfig):
+    check_supported(cfg)
+    d = cfg.d_model
+    p: Dict[str, Any] = {}
+    if not cfg.embedding_inputs:
+        p["embed"] = ini.param("embed", (cfg.vocab_size, d), ("vocab", None),
+                               init="embed", scale=0.02)
+    p.update(_init_blocks(ini, cfg))
+    p["final_norm"] = ll.init_rmsnorm(ini, "final_norm", d)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ini.param("lm_head", (d, cfg.vocab_size),
+                                 (None, "vocab"), scale=0.02)
+    return p
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None):
     """The parameter tree drawn as the reference's ``Model.init`` draws it
     (the prefix blocks unstacked, the others stacked; the same kinds,
     scales and order; no ``embed`` under ``embedding_inputs``), layers
     unstacked, on ``device`` (the card unless the caller asks for the
-    CPU). The matrices come in ``dtype`` (``cfg.pdtype`` unless given);
-    the leaves of ``_NORMS`` and ``_KEPT`` in ``cfg.pdtype``."""
-    check_supported(cfg)
-    ini = Initializer(cfg, seed=seed, device=device, dtype=dtype)
-    d = cfg.d_model
-    p: Dict[str, Any] = {}
-    if not cfg.embedding_inputs:
-        p["embed"] = ini.param("embed", (cfg.vocab_size, d), init="embed",
-                               scale=0.02)
-    p.update(_init_blocks(ini, cfg))
-    p["final_norm"] = ll.init_rmsnorm(ini, "final_norm", d)
-    if not cfg.tie_embeddings:
-        p["lm_head"] = ini.param("lm_head", (d, cfg.vocab_size), scale=0.02)
-    return p
+    CPU; on ``meta`` nothing is drawn, at any size). The matrices come in
+    ``dtype`` (``cfg.pdtype`` unless given); the leaves of ``_NORMS`` and
+    ``_KEPT`` in ``cfg.pdtype``."""
+    return _init(Initializer(cfg, seed=seed, device=device, dtype=dtype),
+                 cfg)
+
+
+def _stack_depth(cfg: ModelConfig) -> int:
+    """The leading axes of the reference's ``blocks`` stack: (G, M) for
+    zamba2 and the VLM, (L,) otherwise."""
+    return 2 if cfg.block_pattern == "zamba2" or cfg.cross_attn_every else 1
+
+
+def param_specs(cfg: ModelConfig, mesh):
+    """The spec on ``mesh`` of every leaf of the port's parameter tree, a
+    tree of ``P`` mirroring ``init_params``'s. A leaf the port keeps
+    unstacked takes the reference's spec of its stack without the
+    leading layer entries, which the reference never shards ("layers" is
+    replicated): ``blocks/i/...`` that of ``blocks/...`` without one
+    entry, or two for zamba2's and the VLM's (G, M) stacks;
+    ``cross/g/part/...`` that of the VLM's (G,) stack ``part/...``
+    without one; ``prefix/i/...`` is the reference's unstacked
+    ``prefix{i}/...``."""
+    ini = Initializer(cfg, mesh=mesh, abstract=True)
+    params = _init(ini, cfg)
+
+    def spec(path):
+        head, *rest = path.split("/")
+        if head == "prefix":
+            return ini.specs["/".join([f"prefix{rest[0]}", *rest[1:]])]
+        if head == "blocks":
+            return P(*ini.specs["/".join(["blocks", *rest[1:]])]
+                     [_stack_depth(cfg):])
+        if head == "cross":
+            return P(*ini.specs["/".join(rest[1:])][1:])
+        return ini.specs[path]
+
+    return tree_specs({path: spec(path) for path, _ in flatten(params)},
+                      params)
 
 
 def _param(x, device, dtype=None, trainable=False) -> nn.Parameter:
@@ -219,16 +262,21 @@ class Model(nn.Module):
     are, no autograd; with ``trainable=True``, a copy of every leaf in
     ``cfg.param_dtype``, each a parameter that takes a gradient. Without
     ``params`` the parameters are drawn from ``seed`` on ``device``,
-    straight into those dtypes. ``embed`` is None under
-    ``embedding_inputs``; ``cross`` holds the VLM's G cross-attention
-    groups (empty for every other model)."""
+    straight into those dtypes; on ``meta`` nothing is drawn, at any
+    size, and every step traces shapes only (the dry run's model).
+    ``embed`` is None under ``embedding_inputs``; ``cross`` holds the VLM's
+    G cross-attention groups (empty for every other model). ``mesh`` (a
+    ``DeviceMesh``, or None) is the mesh the reference would shard the
+    model over; the port runs on one device whatever it is, and reads it
+    for the specs of the cache (``cache_specs``)."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
-                 params=None, trainable: bool = False):
+                 params=None, trainable: bool = False, mesh=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.trainable = trainable
+        self.mesh = mesh
         device = resolve_device(device)
         dt = cfg.pdtype if trainable else cfg.cdtype
         if params is None:
@@ -558,6 +606,62 @@ class Model(nn.Module):
         if self.prefix:
             out["prefix"] = [caches() for _ in self.prefix]
         return out
+
+    def cache_specs(self, B: int, S_max: int):
+        """The specs on ``self.mesh`` of ``init_cache(B, S_max)``'s leaves,
+        a tree mirroring it, by the reference's ``init_cache`` rules: the
+        batch over the data axes where they divide it; k and v by kv head
+        over ``model`` where it divides the heads, else by position where
+        it divides S_max; MLA's latent cache by position; Mamba2's conv
+        channels and ssm heads by head where ``model`` divides the heads;
+        RWKV6's state by batch only."""
+        cfg, mesh = self.cfg, self.mesh
+        m = axis_size(mesh, TP_AXIS)
+        tp = TP_AXIS if m > 1 else None
+        dp = None
+        if mesh is not None:
+            n = 1
+            for a in data_axes(mesh):
+                n *= axis_size(mesh, a)
+            dp = data_axes(mesh) if (n > 1 and B % n == 0) else None
+
+        def kv(stack, KH, S=S_max):
+            lead = (None,) * stack
+            if tp and KH % m == 0:
+                sp = P(*lead, dp, None, tp, None)
+            elif tp and S % m == 0:
+                sp = P(*lead, dp, tp, None, None)
+            else:
+                sp = P(*lead, dp, None, None, None)
+            return {"k": sp, "v": sp}
+
+        KH = cfg.num_kv_heads
+        if cfg.block_pattern == "rwkv6":
+            return {"blocks": {"tm_shift": P(None, dp, None),
+                               "cm_shift": P(None, dp, None),
+                               "wkv": P(None, dp, None, None, None)}}
+        if cfg.block_pattern == "zamba2":
+            _, H, _ = ssm.mamba2_dims(cfg)
+            htp = tp if (tp and H % m == 0) else None
+            return {"blocks": {
+                "mamba": {"conv": P(None, None, dp, None, htp),
+                          "ssm": P(None, None, dp, htp, None, None)},
+                "attn": kv(1, KH)}}
+        if cfg.cross_attn_every:
+            return {"cross_groups": {"self": kv(2, KH),
+                                     "cross_kv": kv(1, KH,
+                                                    S=cfg.num_patches)}}
+        if cfg.mla:
+            seq = tp if (tp and S_max % m == 0) else None
+
+            def latent(stack):
+                sp = P(*(None,) * stack, dp, seq, None)
+                return {"c_kv": sp, "k_rope": sp}
+            out = {"blocks": latent(1)}
+            if self.prefix:
+                out["prefix"] = [latent(0) for _ in self.prefix]
+            return out
+        return {"blocks": kv(1, KH)}
 
     def params(self):
         """The parameter tree, as ``params`` takes it."""
