@@ -164,7 +164,23 @@ Phases, each failing loudly (no phase's failure is caught):
    of the unstaged ``Model.loss``, every gradient leaf against float64
    within ``card_grad_rtol``, the bytes hopped between stages equal to
    the formula; each step's ms and peak memory beside the dry run's
-   reckoning, and the bubble. No kernel of the port runs on this path.
+   reckoning, and the bubble. No kernel of the port runs on this path;
+11. the attention family sharded over a (data, model) mesh
+   (``Model(cfg, mesh=...)``; ``sharded_models``): ``olmoe-1b-7b`` at
+   published size, seed-0 weights, served through ``serve(mesh=...)``
+   on a (2, 4) mesh of the one card at phase 8's shape beside the
+   one-device serve from the same weights: no assignment dropped on
+   either side, where each row's routing first parts from the
+   one-device run's (a near-tie in bfloat16), the peak memory of both;
+   its first 4 layers in float64 teacher-forced on the mesh against one
+   device (logits, expert sets, greedy tokens); one decode step's bytes
+   of each collective kind against their formula; a warm step's ms
+   beside the one-device step's; then the first 2 layers at full width
+   in float32 on (2, 4) meshes of the card and of the CPU against
+   float64 (olmoe at ``capacity_factor=1.0`` with and without
+   ``moe_sp_dispatch``: loss, logits, expert sets, gradients; ``yi-6b``
+   with ``seq_parallel`` and ``fast_norm``: loss, logits). No kernel of
+   the port runs on this path.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
@@ -195,6 +211,7 @@ sources are not beside this script, or when any check fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -203,6 +220,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2558,6 +2576,476 @@ def gpipe(dev, gpu):
     log(f"[gpipe] took {time.monotonic() - t0:.1f} s")
 
 
+# --- phase 11: the attention family sharded over a (data, model) mesh -----
+
+SHARD_ARCH = "olmoe-1b-7b"
+SHARD_BATCH = (4, 64)             # 11b: card against CPU, 2 layers
+
+
+def shard_mesh(device):
+    """Phase 11's (data, model) (2, 4) mesh of 8 entries of ``device``."""
+    from repro_torch.launch.mesh import make_mesh_for
+    return make_mesh_for([device] * 8, model_parallel=4)
+
+
+class RouteLog:
+    """While installed, each call of ``repro_torch.models.moe.route`` is
+    recorded, (top-k experts (N, k), router probabilities (N, E)), for the
+    thread that asked (``record``): phase 11 runs MoE layers on the CPU
+    in a worker thread while the card serves, so one thread's record must
+    not take the other's calls (``Routes`` records every call)."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.lists = moe_mod, {}
+
+    def __call__(self, router, xf, cfg):
+        probs, tope, topw = self.orig(router, xf, cfg)
+        seen = self.lists.get(threading.get_ident())
+        if seen is not None:
+            seen.append((tope, probs))
+        return probs, tope, topw
+
+    def __enter__(self):
+        self.orig, self.moe.route = self.moe.route, self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    @contextlib.contextmanager
+    def record(self):
+        me = threading.get_ident()
+        self.lists[me] = seen = []
+        try:
+            yield seen
+        finally:
+            del self.lists[me]
+
+
+def shard_side(cfg, params, device, mesh, batch, routes):
+    """One side of phase 11b: ``cfg`` (2 layers) built from ``params`` on
+    ``device``, sharded over ``mesh``, trainable where it is MoE; its
+    logits of ``batch`` and their loss (the reference's, as
+    ``Model.loss``), and for MoE the gradient of every leaf. Returns
+    (loss, logits, gradients, each MoE call's top-k experts on the CPU,
+    the weights' bytes)."""
+    import torch
+
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models.transformer import Model, _masked_ce
+    from repro_torch.tree import leaves
+
+    m = Model(cfg, device=device, params=params, trainable=cfg.moe,
+              mesh=mesh)
+    size = sum(_nbytes(w) for w in m.parameters())
+    with deterministic(m.device), routes.record() as seen:
+        logits, aux = m(batch)
+        ce, _ = _masked_ce(logits, torch.as_tensor(batch["labels"]).long()
+                           .to(m.device))
+        loss = ce + cfg.router_aux_coef * aux
+        grads = (torch.autograd.grad(loss, leaves(m.params()))
+                 if cfg.moe else [])
+    return (float(loss.detach()), logits.detach(), list(grads),
+            [e.cpu() for e, _ in seen], size)
+
+
+def sharded_models(dev, gpu, one_ms):
+    """Phase 11. 11a: ``olmoe-1b-7b`` at published width and depth,
+    seed-0 weights, served sharded over a (2, 4) mesh of the one card
+    through ``serve(mesh=...)`` at phase 8's shape (batch 4, prompt 16,
+    32 greedy tokens) beside the one-device serve from the same weights
+    (the sharded model's blocks are views of them), each MoE call's
+    routing recorded: no assignment dropped on either side (each data
+    shard routes 2 tokens x top 8 into a capacity of 4); the data shards'
+    model ranks route alike; where a row's routing parts from the
+    one-device run's while both are fed the same tokens, the step, the
+    layer and the one-device router's gap between its k-th and (k+1)-th
+    probability there (in bfloat16 a rounding of the row-parallel sums
+    parts the two runs on such near-ties, as it parts the card's and the
+    CPU's: the repository compares MoE models whole in float32 or wider);
+    the greedy tokens' agreement; both serves' peak memory. Then
+    ``exact_check`` (the first 4 layers in float64, where the two
+    programs must agree) and one decode step's bytes of each collective
+    kind against their formula (the all-to-all: 16 layers x 2 directions
+    x 8 entries x (16 x 16 x 2048 x 2 B) = 268,435,456 B). 11b:
+    ``sharded_checks``, whose CPU runs go on in a worker thread from the
+    phase's start. Last, with the CPU idle again, a warm decode step's ms
+    (CUDA events, 16 steps) on the mesh beside the one-device step's."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_model import serve
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.tree import map_tree
+
+    B, P, G = 4, 16, 32
+    arch = SHARD_ARCH
+    cfg = get_config(arch)
+    L, E, k = cfg.num_layers, cfg.num_experts, cfg.top_k
+    mesh = shard_mesh("cuda:0")
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    one = Model(cfg, seed=0, device=dev)
+    tree = one.params()
+    # 11b's weights, copied to the CPU: the served olmoe's first 2
+    # layers, and yi-6b drawn whole from seed 0 and cut
+    yi = init_params(get_config("yi-6b"), seed=0, device=dev,
+                     dtype=torch.bfloat16)
+    cut = {a: map_tree(lambda x: x.cpu(), dict(t, blocks=t["blocks"][:2]))
+           for a, t in ((arch, tree), ("yi-6b", yi))}
+    # the card's runs read olmoe's from the served model (views), yi's
+    # from the CPU copy, so that the serves' peak is phase 8's
+    on_card = dict(cut, **{arch: dict(tree, blocks=tree["blocks"][:2])})
+    del yi
+    torch.cuda.empty_cache()
+    threads = torch.get_num_threads()
+    # the card's host thread keeps a core while the worker computes
+    torch.set_num_threads(max(threads - 2, 1))
+    with RouteLog(moe) as routes, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        checks = sharded_checks_start(cut, routes, pool)
+        served, peaks, seen_by = {}, {}, {}
+        for name, m in (("one device", None), ("(2, 4)", mesh)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with routes.record() as seen:
+                served[name] = serve(arch, smoke=False, batch=B,
+                                     prompt_len=P, gen_tokens=G, seed=0,
+                                     quiet=True, device=dev, params=tree,
+                                     mesh=m)
+            peaks[name] = torch.cuda.max_memory_allocated(dev)
+            seen_by[name] = seen
+        log(f"[shard {arch}] served on a (2, 4) mesh of cuda:0 (8 entries, "
+            f"{E // M} experts a model rank): {B} x {G} tokens after a "
+            f"prompt of {P} in {served['(2, 4)']['seconds']:.3f} s "
+            f"({served['(2, 4)']['seconds'] * 1e3 / (P + G):.1f} ms a step "
+            f"as served, the CPU's checks running beside it), one device "
+            f"{served['one device']['seconds']:.3f} s; peak memory "
+            f"{peaks['(2, 4)'] / 2 ** 30:.3f} GiB ({peaks['(2, 4)']} B) "
+            f"against the one-device serve's "
+            f"{peaks['one device'] / 2 ** 30:.3f} GiB ({peaks['one device']}"
+            f" B) ({gpu})")
+        if peaks["(2, 4)"] > 2 * peaks["one device"]:
+            fail(f"[shard {arch}] peak memory {peaks['(2, 4)']} B: the "
+                 f"entries copy their blocks of the weights")
+        drops = {name: sum(int((~moe.slots(e, E, moe.capacity(
+            e.shape[0], cfg))[1]).sum()) for e, _ in seen)
+            for name, seen in seen_by.items()}
+        # a sharded step-layer's D x M calls: entry (i, j) routes data row i
+        calls = [e for e, _ in seen_by["(2, 4)"]]
+        sets = []
+        for c in range(0, len(calls), D * M):
+            rows = [calls[c + i * M:c + (i + 1) * M] for i in range(D)]
+            if any(not torch.equal(r[0], e) for r in rows for e in r):
+                fail(f"[shard {arch}] the model ranks of a data row routed "
+                     f"apart")
+            sets.append(torch.cat([r[0] for r in rows]).sort(-1)[0])
+        sets = torch.stack(sets).reshape(P + G, L, B, k)
+        sets1 = torch.stack([e.sort(-1)[0] for e, _ in seen_by["one device"]]
+                            ).reshape(P + G, L, B, k)
+        top = torch.stack([p for _, p in seen_by["one device"]]).sort(
+            -1, descending=True)[0]
+        gaps = (top[..., k - 1] - top[..., k]).reshape(P + G, L, B)
+        one_t, mesh_t = (served[n]["tokens"] for n in ("one device",
+                                                        "(2, 4)"))
+        parted = []
+        for r in range(B):
+            apart = np.nonzero(one_t[r] != mesh_t[r])[0]
+            fed = P + (int(apart[0]) if apart.size else G)  # same tokens
+            bad = (sets[:fed, :, r] != sets1[:fed, :, r]).any(-1).nonzero()
+            parted.append((r, tuple(int(x) for x in bad[0]) if len(bad)
+                           else None, float(gaps[tuple(bad[0]) + (r,)])
+                           if len(bad) else None,
+                           int(apart[0]) if apart.size else None))
+        log(f"[shard {arch}] routing recorded in both serves ({len(calls)} "
+            f"MoE calls on the mesh: 8 entries x {L} layers x {P + G} "
+            f"steps; capacity {moe.capacity(B // D, cfg)} a shard of "
+            f"{B // D} tokens): dropped assignments {drops['(2, 4)']}, one "
+            f"device {drops['one device']}; the data rows' model ranks "
+            f"route alike; each row's first (step, layer) where its routing "
+            f"parts from the one-device run's while both are fed the same "
+            f"tokens, the one-device router's gap between its top-{k} and "
+            f"next probability there, and the first generated token that "
+            f"parts: {parted}; greedy token rows equal "
+            f"{int((one_t == mesh_t).all(1).sum())} of {B} ({gpu})")
+        if drops["(2, 4)"] or drops["one device"]:
+            fail(f"[shard {arch}] {drops} assignments dropped at a shape "
+                 f"where none can drop")
+        seq = torch.cat([torch.as_tensor(served["one device"]["prompt"],
+                                         device=dev),
+                         torch.as_tensor(one_t, device=dev)], 1).to(
+            torch.int32)
+        del served, seen_by, calls
+        exact_check(dev, gpu, one, seq[:, :P], mesh, routes)
+
+        # one decode step's collectives against their formula
+        sharded = Model(cfg, device=dev, params=tree, mesh=mesh)
+        caches = {"one device": one.init_cache(B, P + G),
+                  "(2, 4)": sharded.init_cache(B, P + G)}
+        nxt = {"tokens": seq[:, P:P + 1]}
+        mesh.hops.clear()
+        sharded.decode_step(caches["(2, 4)"], nxt, P)
+        d, bf = cfg.d_model, 2
+        cap = moe.capacity(B // D, cfg)
+        act = M * B * d * bf
+        want = {"all-reduce": act * (1 + L) + L * 2 * D * M * 4,
+                "all-to-all": L * 2 * D * M * E * cap * d * bf,
+                "all-gather": M * B * cfg.vocab_size * bf}
+        got = dict(mesh.hops)
+        log(f"[shard {arch}] one decode step's collective bytes (every "
+            f"participant's output): {got}; the formula {want}: all-reduce "
+            f"M B d x 2 B x (1 + L) (the embedding's vocabulary shards, "
+            f"each layer's row-parallel attention) + L x 2 D M x 4 B (the "
+            f"load-balance loss's pmean over data and model), all-to-all L "
+            f"x 2 directions x D M entries x (E / M, M cap, d) = {L} x 2 x "
+            f"{D * M} x ({E // M} x {M * cap} x {d} x 2 B), all-gather M B "
+            f"V x 2 B (the logits' vocabulary shards) ({gpu})")
+        if got != want:
+            fail(f"[shard {arch}] collective bytes {got}, the formula "
+                 f"{want}")
+        sharded_checks(dev, gpu, on_card, checks, routes)
+    torch.set_num_threads(threads)
+
+    ms = {name: time_ms(lambda: model.decode_step(caches[name], nxt, P),
+                        reps=16)
+          for name, model in (("one device", one), ("(2, 4)", sharded))}
+    log(f"[shard {arch}] decode step at batch {B}: {ms['(2, 4)']:.3f} ms a "
+        f"step on the (2, 4) mesh, {ms['one device']:.3f} ms on one device "
+        f"(CUDA events, 16 warm steps at position {P}, the CPU idle; phase "
+        f"8's one-device step {one_ms:.3f} ms in this run), "
+        f"{ms['(2, 4)'] / ms['one device']:.2f}x ({gpu})")
+    del sharded, caches, one, tree, on_card
+    torch.cuda.empty_cache()
+
+
+def exact_check(dev, gpu, served, seq, mesh, routes):
+    """Phase 11a's exact check: the served ``olmoe-1b-7b`` cut to its first
+    4 layers at full width, in float64 on the card, one device against
+    the (2, 4) mesh, teacher-forced over ``seq`` (the served prompt, 16
+    positions): every MoE call's expert sets equal, every step's greedy
+    token equal, the logits within ``f32_tolerance(4)`` (in float64 the
+    two programs' own rounding sits far below it, and a routing near-tie
+    cannot part them, as it parts the bfloat16 runs at full depth)."""
+    import torch
+    from _model_cases import f32_tolerance
+
+    from repro_torch.models.transformer import Model
+
+    arch, n = SHARD_ARCH, 4
+    cfg = served.cfg.replace(num_layers=n, dtype="float64",
+                             param_dtype="float64")
+    params = served.params()
+    params["blocks"] = params["blocks"][:n]
+    one = Model(cfg, device=dev, params=params)
+    sharded = Model(cfg, device=dev, params=one.params(), mesh=mesh)
+    B, T = seq.shape
+    got = {}
+    for name, model in (("one device", one), ("(2, 4)", sharded)):
+        cache = model.init_cache(B, T)
+        out = []
+        with routes.record() as seen:
+            for t in range(T):
+                lg, cache = model.decode_step(cache,
+                                              {"tokens": seq[:, t:t + 1]}, t)
+                out.append(lg)
+        got[name] = (torch.cat(out, 1), [e.sort(-1)[0] for e, _ in seen])
+    a, b = got["one device"][0], got["(2, 4)"][0]
+    err = float((a - b).abs().max())
+    tol = f32_tolerance(n)
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    # a sharded step-layer's calls: entry (i, j) routes data row i
+    mesh_sets = [torch.cat([got["(2, 4)"][1][c + i * M] for i in range(D)])
+                 for c in range(0, len(got["(2, 4)"][1]), D * M)]
+    same_sets = len(mesh_sets) == len(got["one device"][1]) and all(
+        torch.equal(x, y) for x, y in zip(mesh_sets, got["one device"][1]))
+    same_argmax = bool((a.argmax(-1) == b.argmax(-1)).all())
+    log(f"[shard {arch}] float64, the first {n} layers at full width, one "
+        f"device against the (2, 4) mesh, teacher-forced over {T} "
+        f"positions: logits max abs err {err:.3e} (tolerance {tol}; max "
+        f"|logit| {float(a.abs().max()):.4f}); expert sets equal at all "
+        f"{len(mesh_sets)} step-layers: {same_sets}; greedy tokens equal at "
+        f"every step: {same_argmax} ({gpu})")
+    if err > tol or not same_sets or not same_argmax:
+        fail(f"[shard {arch}] float64: the sharded program parts from the "
+             f"one-device program")
+    del one, sharded, got, params
+    torch.cuda.empty_cache()
+
+
+def shard_variants():
+    """Phase 11b's cases: (name, its 2-layer float32 config)."""
+    from repro_torch.configs import get_config
+    small = dict(num_layers=2, dtype="float32", remat="none")
+    olmoe = get_config(SHARD_ARCH).replace(capacity_factor=1.0, **small)
+    return [(SHARD_ARCH, olmoe.replace(moe_sp_dispatch=False)),
+            (SHARD_ARCH, olmoe.replace(moe_sp_dispatch=True)),
+            ("yi-6b", get_config("yi-6b").replace(
+                seq_parallel=True, fast_norm=True, **small))]
+
+
+def shard_batch(cfg):
+    import numpy as np
+    b, s = SHARD_BATCH
+    rng = np.random.default_rng(1)
+    labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels[0, :3] = -1
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32), "labels": labels}
+
+
+def sharded_checks_start(cut, routes, pool):
+    """Phase 11b's CPU runs, queued on ``pool`` (one worker thread) from
+    the phase's start: each case's float32 run on a (2, 4) mesh of the
+    CPU, then each MoE case's float64 run there, which ``sharded_checks``
+    reads only where a leaf's float32 gradient passes its rule and
+    cancels unstarted where none does; the sequence-sharded dispatch's
+    first (its float32 gradient has been the one nearest the rule on
+    this card). Returns {(case index, dtype): future}."""
+    host = shard_mesh("cpu")
+    futures = {}
+    cases = shard_variants()
+    for n, (arch, cfg) in enumerate(cases):
+        futures[n, "float32"] = pool.submit(
+            shard_side, cfg, cut[arch], "cpu", host, shard_batch(cfg),
+            routes)
+    for n, (arch, cfg) in reversed(list(enumerate(cases))):
+        if cfg.moe:
+            futures[n, "float64"] = pool.submit(
+                shard_side, cfg.replace(dtype="float64",
+                                        param_dtype="float64"),
+                cut[arch], "cpu", host, shard_batch(cfg), routes)
+    return futures
+
+
+def sharded_checks(dev, gpu, cut, futures, routes):
+    """Phase 11b: the first 2 layers at full width (``cut``), in float32
+    on (2, 4) meshes of the card and of the CPU (the CPU's runs in a
+    worker thread, ``sharded_checks_start``), and in float64 on the
+    card's mesh from the same weights (the referee, as in phase 9c):
+    ``olmoe-1b-7b`` (the served weights, cut) at ``capacity_factor=1.0``,
+    batch 4 x 64, where assignments drop, with and without
+    ``moe_sp_dispatch``, and ``yi-6b`` (drawn whole from seed 0, cut)
+    with ``seq_parallel`` and ``fast_norm``. The card's float32 loss and logits within
+    ``f32_tolerance(2)`` of the float64 ones, or where the CPU's own
+    float32 error passes that, within twice it (at full width float32's
+    rounding passes the absolute rule on any device:
+    ``tests/_model_cases.py:card_grad_rtol``'s reasoning); the card
+    against the CPU printed. For olmoe also the expert sets of every
+    entry's MoE call equal on the three, and every gradient leaf of the
+    card within ``card_grad_rtol`` of its largest from the float64 one;
+    a leaf past it (float32's own rounding: the rule is twice the CPU's
+    error on one sample) is held in float64 instead, the card's against
+    the CPU's float64 run, within ``grad_tolerance(2)``, every leaf."""
+    import torch
+    from _model_cases import (card_grad_rtol, f32_tolerance, grad_error,
+                              grad_tolerance)
+
+    from repro_torch.models import moe
+    from repro_torch.tree import flatten
+
+    card_mesh = shard_mesh("cuda:0")
+    M = card_mesh.shape["model"]
+    b, s = SHARD_BATCH
+    tol = f32_tolerance(2)
+    for n, (arch, small) in enumerate(shard_variants()):
+        t0 = time.monotonic()
+        batch = shard_batch(small)
+        got = {"card": shard_side(small, cut[arch], dev, card_mesh, batch,
+                                  routes),
+               "float64": shard_side(small.replace(dtype="float64",
+                                                   param_dtype="float64"),
+                                     cut[arch], dev, card_mesh, batch,
+                                     routes)}
+        card_s = time.monotonic() - t0
+        got["cpu"] = futures[n, "float32"].result()
+        size = got["cpu"][4]
+
+        def diff(a, b, i):
+            return (abs(got[a][0] - got[b][0]) if i == 0 else float(
+                (got[a][1].to(dev, torch.float64)
+                 - got[b][1].to(dev, torch.float64)).abs().max()))
+        err = {side: [diff(side, "float64", i) for i in (0, 1)]
+               for side in ("card", "cpu")}
+        rule = [max(tol, 2 * e) for e in err["cpu"]]
+        apart = [diff("card", "cpu", i) for i in (0, 1)]
+        what = ", ".join(f"{k}={getattr(small, k)}" for k in (
+            ("moe_sp_dispatch",) if small.moe else
+            ("seq_parallel", "fast_norm")))
+        line = (f"[shard card-vs-cpu {arch}] the first 2 layers at full "
+                f"width ({size / 1e9:.2f} GB of float32 weights on the "
+                f"CPU), {what}, batch {b} x {s}, on (2, 4) meshes of the "
+                f"card and of the CPU: float32 loss {got['cpu'][0]:.6f}; "
+                f"against float64, the card's loss {err['card'][0]:.3g} and "
+                f"logits {err['card'][1]:.6f}, the CPU's "
+                f"{err['cpu'][0]:.3g} and {err['cpu'][1]:.6f} (rule "
+                f"{rule[0]:.3g}, {rule[1]:.6f}: f32_tolerance(2) {tol}, or "
+                f"twice the CPU's); card against CPU {apart[0]:.3g}, "
+                f"{apart[1]:.6f}")
+        if err["card"][0] > rule[0] or err["card"][1] > rule[1]:
+            fail(f"{line}: beyond the float32 rule")
+        if small.moe:
+            calls = [got[k][3] for k in ("card", "cpu", "float64")]
+            if len({len(c) for c in calls}) != 1 or not calls[0]:
+                fail(f"[shard card-vs-cpu {arch}] MoE calls "
+                     f"{[len(c) for c in calls]}")
+            for i, sets in enumerate(zip(*calls)):
+                first = sets[0].sort(-1)[0]
+                if not all(torch.equal(first, e.sort(-1)[0]) for e in sets):
+                    fail(f"[shard card-vs-cpu {arch}] MoE call {i}: the "
+                         f"expert sets differ between the card, the CPU and "
+                         f"float64")
+            # every model rank routes its data row's tokens, or under
+            # moe_sp_dispatch its slice of them
+            assigned = b * s * small.top_k * (1 if small.moe_sp_dispatch
+                                              else M)
+            dropped = sum(int((~moe.slots(e, small.num_experts,
+                                          moe.capacity(e.shape[0], small))
+                               [1]).sum()) for e in calls[0])
+            names = [k for k, _ in flatten(cut[arch])]
+            g_card, g_cpu, g64 = (dict(zip(names, got[k][2]))
+                                  for k in ("card", "cpu", "float64"))
+            e_card = {k: grad_error(g_card[k].double(), g64[k])
+                      for k in names}
+            e_cpu = {k: grad_error(g_cpu[k].to(dev).double(), g64[k])
+                     for k in names}
+            rtol = {k: card_grad_rtol(e_cpu[k], 2) for k in names}
+            worst = max(names, key=lambda k: e_card[k] / rtol[k])
+            line += (f"; expert sets equal in all {len(calls[0])} MoE calls "
+                     f"(8 entries x 2 layers), {dropped} of {assigned} "
+                     f"assignments dropped; gradients against float64, the "
+                     f"worst leaf against its rule {worst}: card "
+                     f"{e_card[worst]:.3g}, CPU {e_cpu[worst]:.3g} (rule "
+                     f"{rtol[worst]:.3g}), over {len(names)} leaves")
+            over = [k for k in names if e_card[k] > rtol[k]]
+            if over:
+                # float32's own rounding passes the rule on these leaves:
+                # they are held in float64, the card's against the CPU's,
+                # where rounding sits far below grad_tolerance (the VLM's
+                # group is held so, phase 8)
+                g_host = dict(zip(names, futures[n, "float64"].result()[2]))
+                e64 = {k: grad_error(g_host[k].to(dev), g64[k])
+                       for k in names}
+                worst64 = max(names, key=e64.get)
+                gtol = grad_tolerance(2)
+                line += (f"; past the rule in float32: {over} (card "
+                         f"{[round(e_card[k] / rtol[k], 3) for k in over]} "
+                         f"of it), so held in float64, the card against the "
+                         f"CPU: the worst leaf {worst64} at "
+                         f"{e64[worst64]:.3g} of its largest (tolerance "
+                         f"{gtol})")
+                if e64[worst64] > gtol:
+                    fail(f"{line}: float64 gradients part")
+            else:
+                futures[n, "float64"].cancel()
+        log(f"{line}; the card's runs {card_s:.1f} s, the phase so far "
+            f"waited {time.monotonic() - t0:.1f} s for this case ({gpu})")
+        del got
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3139,6 +3627,10 @@ def main(argv=None) -> int:
     # 10. the dry run, its roofline against the card, GPipe ------------------
     dryrun_models(dev, gpu, step_ms, decode_ms[TRAIN_ARCH])
     lap("10")
+
+    # 11. the attention family sharded over a (data, model) mesh -------------
+    sharded_models(dev, gpu, decode_ms[SHARD_ARCH])
+    lap("11")
     log(f"[time] the whole run: {time.monotonic() - laps[0]:.1f} s")
 
     log(json.dumps({"kernels": entries}))

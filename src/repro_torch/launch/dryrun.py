@@ -29,9 +29,11 @@ port's (``launch/steps.py``): the train step is ``Model.loss``'s value and
 gradient under the config's remat, then ``adamw.update``, with the
 model's parameters float32; the prefill and serve steps run a serving
 model, its matrices in ``cfg.dtype``. Collective bytes are the port's own
-count (``roofline.collective_bytes``), 0 for every cell: the port runs a
-model unsharded, and the sharded model is not ported (ROADMAP.md, Queue
-1). ``memory`` keeps the reference's keys:
+count (``roofline.collective_bytes``), 0 for every cell: the dry run
+traces the unsharded program (a mesh of ``meta`` entries gives the model
+its specs only: ``models/transformer.py:runs_sharded``), and counting
+the sharded program's collectives is ROADMAP item 33. ``memory`` keeps
+the reference's keys:
 
 - ``argument_bytes``: per device, each argument leaf's bytes (the
   parameters, the optimizer state, the batch, the cache) divided by the
@@ -319,6 +321,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, opt_overrides=None,
         cfg = cfg.replace(**opt_overrides)
     shape = shape or shp.SHAPES[shape_name]
     train = shape.kind == "train"
+    # a mesh of meta entries gives the specs only: the unsharded program
+    # is traced (models/transformer.py:runs_sharded)
     model = Model(cfg, device=device, trainable=train, mesh=mesh)
     params = model.params()
     pspecs = param_specs(cfg, mesh)

@@ -8,10 +8,14 @@ device and steps every shard sweep by sweep, and
 as the reference's single controller drives every device of a
 ``jax.sharding.Mesh``. No process group is formed. The same device may
 fill several entries, so one card, or the CPU, can run a (2, 1) or (1,
-2) mesh; that changes no result. A mesh of ``"meta"`` entries is the
-dry run's stand-in for the reference's placeholder devices
-(``--xla_force_host_platform_device_count``): it has the production
-shape, and nothing runs on it (``launch/dryrun.py``). A mesh's
+2) mesh; that changes no result. ``models/transformer.py`` runs a model
+sharded over a (data, model) mesh, each entry's part on its device and
+the collectives between entries through ``DeviceMesh.all_reduce``,
+``all_gather``, ``reduce_scatter``, ``all_to_all`` and ``pmean``. A mesh
+of ``"meta"`` entries is the dry run's stand-in for the reference's
+placeholder devices (``--xla_force_host_platform_device_count``): it has
+the production shape, and nothing runs on it (``launch/dryrun.py``). A
+mesh's
 ``hops`` counts the bytes moved between its entries
 (``DeviceMesh.hop``).
 
@@ -54,6 +58,98 @@ class DeviceMesh:
     def count(self, kind: str, nbytes: int) -> None:
         """Add ``nbytes`` to ``hops[kind]``."""
         self.hops[kind] = self.hops.get(kind, 0) + int(nbytes)
+
+    # -- collectives ----------------------------------------------------
+    # Each works over the entries along one named axis: ``xs`` holds one
+    # tensor for each entry along ``axis``, in the axis's order, each on
+    # its entry's device, and the result is one tensor for each of those
+    # entries, on its device. Data moves between entries by ``hop``'s copy,
+    # autograd flows through every one, and each adds to ``hops[kind]`` the
+    # bytes of every participant's output, as the reference counts a
+    # collective. Along an axis of size 1 each returns ``xs`` as it is and
+    # counts nothing, as XLA drops a collective over one device.
+
+    def _along(self, xs: Sequence[torch.Tensor], axis: str) -> int:
+        n = self.shape[axis]
+        if len(xs) != n:
+            raise ValueError(f"axis {axis!r} has {n} entries, got "
+                             f"{len(xs)} tensors")
+        return n
+
+    def _out(self, kind: str, outs: list) -> list:
+        self.count(kind, sum(t.numel() * t.element_size() for t in outs))
+        return outs
+
+    @staticmethod
+    def _sum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+        """The sum of ``parts`` on ``device`` in a fixed order: entry 0
+        first, then 1, 2, ..., in float32 where they are narrower (bfloat16,
+        float16), cast back once at the end."""
+        dtype = parts[0].dtype
+        wide = torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+            else dtype
+        acc = parts[0].to(device=device, dtype=wide, copy=True)
+        for x in parts[1:]:
+            acc = acc + x.to(device=device, dtype=wide)
+        return acc.to(dtype)
+
+    def all_reduce(self, xs, axis: str) -> list:
+        """Every entry gets the sum of ``xs``, summed in a fixed order
+        (entry 0 first, then 1, 2, ...; bfloat16 and float16 accumulated in
+        float32 and cast back once), so every entry holds the same bits and
+        a run is deterministic."""
+        if self._along(xs, axis) == 1:
+            return list(xs)
+        total = self._sum(xs, xs[0].device)
+        return self._out("all-reduce",
+                         [total.to(x.device, copy=True) for x in xs])
+
+    def pmean(self, xs, axis: str) -> list:
+        """``all_reduce`` divided by the axis's size (counted as an
+        all-reduce)."""
+        n = self._along(xs, axis)
+        return [t / n for t in self.all_reduce(xs, axis)] if n > 1 \
+            else list(xs)
+
+    def all_gather(self, xs, axis: str, dim: int) -> list:
+        """Every entry gets ``xs`` concatenated along ``dim`` in the
+        entries' order."""
+        if self._along(xs, axis) == 1:
+            return list(xs)
+        return self._out("all-gather", [
+            torch.cat([x.to(d.device) for x in xs], dim) for d in xs])
+
+    def reduce_scatter(self, xs, axis: str, dim: int) -> list:
+        """Entry j gets the j-th of n equal chunks along ``dim`` of the sum
+        of ``xs``, summed in ``all_reduce``'s fixed order."""
+        n = self._along(xs, axis)
+        if n == 1:
+            return list(xs)
+        if xs[0].shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(xs[0].shape)} does "
+                             f"not split into {n} chunks")
+        chunks = [x.chunk(n, dim) for x in xs]
+        return self._out("reduce-scatter", [
+            self._sum([c[j] for c in chunks], xs[j].device)
+            for j in range(n)])
+
+    def all_to_all(self, xs, axis: str, split_axis: int,
+                   concat_axis: int) -> list:
+        """``jax.lax.all_to_all(..., tiled=True)``: each entry's tensor
+        split into n equal chunks along ``split_axis``; entry j gets the
+        j-th chunk of every entry, concatenated along ``concat_axis`` in
+        the entries' order."""
+        n = self._along(xs, axis)
+        if n == 1:
+            return list(xs)
+        if xs[0].shape[split_axis] % n:
+            raise ValueError(f"dimension {split_axis} of "
+                             f"{tuple(xs[0].shape)} does not split into {n} "
+                             f"chunks")
+        chunks = [x.chunk(n, split_axis) for x in xs]
+        return self._out("all-to-all", [
+            torch.cat([c[j].to(xs[j].device) for c in chunks], concat_axis)
+            for j in range(n)])
 
     @property
     def shape(self) -> Dict[str, int]:

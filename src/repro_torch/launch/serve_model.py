@@ -47,7 +47,7 @@ def frame_table(cfg, device) -> torch.Tensor:
 def serve(arch: str = "smollm-360m", smoke: bool = True, batch: int = 4,
           prompt_len: int = 16, gen_tokens: int = 32, seed: int = 0,
           temperature: float = 0.0, params=None, quiet: bool = False,
-          device="cuda", frames=None):
+          device="cuda", frames=None, mesh=None):
     """Serve one batch: ``prompt_len`` prefill steps of the prompt drawn from
     ``np.random.default_rng(seed)`` as the reference draws it (tokens, or
     for a model fed embeddings (batch, prompt_len, d) float32 normal draws
@@ -61,10 +61,17 @@ def serve(arch: str = "smollm-360m", smoke: bool = True, batch: int = 4,
     ``Model.init_cache``, as the reference's ``serve`` does. Returns
     {"tokens": (batch, gen_tokens) int array, "seconds": wall time of
     prefill and decode, "prompt": the prompt fed, (batch, prompt_len) int
-    or (batch, prompt_len, d) float32 array}."""
-    dev = resolve_device(device)
+    or (batch, prompt_len, d) float32 array}.
+
+    ``mesh`` (a ``launch/mesh.py:DeviceMesh`` on ("data", "model"), and
+    "pod" where present): the model runs sharded over it, on the device
+    of its first entry (``device`` is then not read). The reference
+    defaults to ``make_mesh_for(len(jax.devices()), 1)``; the port keeps
+    None, one device, which is that default on one card."""
+    dev = resolve_device(device if mesh is None else
+                         mesh.devices.flat[0])
     cfg = get_config(arch, smoke=smoke)
-    model = Model(cfg, seed=seed, device=dev, params=params)
+    model = Model(cfg, seed=seed, device=dev, params=params, mesh=mesh)
     S_max = prompt_len + gen_tokens
     cache = model.init_cache(batch, S_max)
 

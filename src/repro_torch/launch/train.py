@@ -65,7 +65,7 @@ def train(arch: str = "smollm-360m", smoke: bool = True, steps: int = 100,
           resume: bool = True, seed: int = 0, device=None,
           log_every: int = 10, die_at_step: Optional[int] = None,
           config_overrides: Optional[dict] = None, quiet: bool = False,
-          params=None):
+          params=None, mesh=None):
     """Train ``steps`` steps of ``batch`` x ``seq`` tokens from the seeded
     synthetic corpus, AdamW at ``lr`` (warmup ``max(steps // 20, 5)``,
     cosine to ``steps``). The weights are drawn from ``seed`` on
@@ -77,8 +77,15 @@ def train(arch: str = "smollm-360m", smoke: bool = True, steps: int = 100,
     save in flight has landed. Returns {"final_loss", "losses",
     "grad_norms" (before clipping), "steps_run", "params" (the model's
     tree), "opt_state", "checkpoints" (the ``Checkpointer.log``, empty
-    without ``ckpt_dir``)}."""
-    dev = resolve_device(device)
+    without ``ckpt_dir``)}.
+
+    ``mesh`` (a ``launch/mesh.py:DeviceMesh`` on ("data", "model"), and
+    "pod" where present): the model runs sharded over it, on the device
+    of its first entry (``device`` is then not read), and the step
+    differentiates the sharded loss. The reference defaults to
+    ``make_mesh_for(len(jax.devices()), 1)``; the port keeps None, one
+    device, which is that default on one card."""
+    dev = resolve_device(device if mesh is None else mesh.devices.flat[0])
     cfg = get_config(arch, smoke=smoke)
     if config_overrides:
         cfg = cfg.replace(**config_overrides)
@@ -87,7 +94,8 @@ def train(arch: str = "smollm-360m", smoke: bool = True, steps: int = 100,
             f"{arch}: the token pipeline yields tokens only, and this model "
             f"is fed {'embeddings' if cfg.embedding_inputs else 'patches'}; "
             f"train it through launch.steps.make_train_step")
-    model = Model(cfg, seed=seed, device=dev, params=params, trainable=True)
+    model = Model(cfg, seed=seed, device=dev, params=params, trainable=True,
+                  mesh=mesh)
     opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5),
                                 total_steps=steps)
     step_fn = make_train_step(model, opt_cfg)

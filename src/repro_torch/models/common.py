@@ -12,12 +12,14 @@ The mesh rules are the reference's: the axis names (``DATA_AXES``,
 read only a mesh's ``axis_names`` and ``shape`` and so take the port's
 ``launch/mesh.py:DeviceMesh``. ``P`` stands in for JAX's
 ``PartitionSpec``: a tuple with one entry a dimension (a mesh axis name, a
-tuple of names, or None). The port runs a model on one device and shards
-nothing at run time; the specs say how the reference lays each leaf out,
-and the dry run divides each argument's bytes by them
-(``launch/dryrun.py``). An abstract ``Initializer`` (``abstract=True``,
-or ``device="meta"``) draws nothing: every leaf is an empty tensor on the
-``meta`` device, its spec recorded under the reference's path.
+tuple of names, or None). The specs say how the reference lays each leaf
+out; the dry run divides each argument's bytes by them
+(``launch/dryrun.py``), and a model sharded at run time
+(``models/transformer.py``) gives each mesh entry its block of a leaf by
+them (``shard``, ``Entries``). An abstract ``Initializer``
+(``abstract=True``, or ``device="meta"``) draws nothing: every leaf is an
+empty tensor on the ``meta`` device, its spec recorded under the
+reference's path.
 """
 from __future__ import annotations
 
@@ -146,6 +148,17 @@ def axis_size(mesh, name: str) -> int:
     return mesh.shape[name]
 
 
+def dp_for(mesh, dim: int):
+    """The reference's ``_dp_for``: the data axes of ``mesh``, where their
+    sizes' product is above 1 and divides ``dim`` (a batch), else None (the
+    batch replicated over them)."""
+    if mesh is None:
+        return None
+    dp = data_axes(mesh)
+    n = math.prod(axis_size(mesh, a) for a in dp)
+    return dp if (n > 1 and dim % n == 0) else None
+
+
 # ---------------------------------------------------------------------------
 # Logical-axis -> partition spec rules
 # ---------------------------------------------------------------------------
@@ -188,6 +201,104 @@ def spec_for(logical_axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
             used.add(p)
         out.append(p)
     return P(*out)
+
+
+def shard(x: torch.Tensor, spec, mesh, coords: Dict[str, int]):
+    """The block of ``x`` that the entry at ``coords`` (mesh axis name ->
+    index) holds under ``spec``: each dimension whose entry names mesh axes
+    cut into as many equal parts as those axes have entries together (the
+    first axis named the major one), the entry's part kept. A view of
+    ``x``; ``x`` itself where ``spec`` shards nothing."""
+    index = []
+    for dim, entry in zip(x.shape, spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        n, pos = 1, 0
+        for a in axes:
+            n, pos = n * mesh.shape[a], pos * mesh.shape[a] + coords[a]
+        if dim % n:
+            raise ValueError(f"a dimension of {dim} does not split over "
+                             f"{axes}")
+        index.append(slice(pos * (dim // n), (pos + 1) * (dim // n))
+                     if n > 1 else slice(None))
+    return x[tuple(index)] if any(s != slice(None) for s in index) else x
+
+
+class Entries:
+    """A (data, model) mesh as a model runs over it: D rows, one a data
+    shard (the data axes "pod" and "data", pod the major), by M columns,
+    one a ``model`` rank. ``devices[i][j]`` and ``coords[i][j]`` (mesh axis
+    name -> index) are entry (i, j)'s; axes of the mesh other than these
+    stand at index 0 (their replicas compute what index 0 does, and are
+    not run). A grid is a list of D lists of M values, one an entry.
+    ``part`` cuts a leaf by its spec; the ``model_*`` collectives run each
+    row's entries through the mesh's collective over ``model``, and
+    ``pmean`` over the named axes."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.dp = data_axes(mesh)
+        sizes = [axis_size(mesh, a) for a in self.dp]
+        self.D = math.prod(sizes)
+        self.M = axis_size(mesh, TP_AXIS)
+        self.coords, self.devices = [], []
+        for i in range(self.D):
+            at, rest = {}, i
+            for a, n in reversed(list(zip(self.dp, sizes))):
+                at[a], rest = rest % n, rest // n
+            row_c, row_d = [], []
+            for j in range(self.M):
+                c = {a: 0 for a in mesh.axis_names}
+                c.update(at)
+                if TP_AXIS in c:
+                    c[TP_AXIS] = j
+                row_c.append(c)
+                row_d.append(mesh.devices[tuple(c[a] for a in
+                                                mesh.axis_names)])
+            self.coords.append(row_c)
+            self.devices.append(row_d)
+
+    def grid(self, fn):
+        """[[fn(i, j) for each model rank j] for each data row i]."""
+        return [[fn(i, j) for j in range(self.M)] for i in range(self.D)]
+
+    def part(self, x: torch.Tensor, spec, i: int, j: int) -> torch.Tensor:
+        """Entry (i, j)'s block of ``x`` by ``spec`` (``shard``) on its
+        device: a view of ``x`` where ``x`` is on that device already (no
+        copy: a replicated leaf is ``x`` itself), else a copy there."""
+        return shard(x, spec, self.mesh, self.coords[i][j]).to(
+            self.devices[i][j])
+
+    def model_all_reduce(self, g):
+        return [self.mesh.all_reduce(row, TP_AXIS) for row in g]
+
+    def model_all_gather(self, g, dim: int):
+        return [self.mesh.all_gather(row, TP_AXIS, dim) for row in g]
+
+    def model_reduce_scatter(self, g, dim: int):
+        return [self.mesh.reduce_scatter(row, TP_AXIS, dim) for row in g]
+
+    def model_all_to_all(self, g, split_axis: int, concat_axis: int):
+        return [self.mesh.all_to_all(row, TP_AXIS, split_axis, concat_axis)
+                for row in g]
+
+    def pmean(self, g, axes):
+        """``g`` averaged over each of ``axes`` in turn (the mesh's
+        ``pmean``: among the entries that differ only in that axis)."""
+        out = [list(row) for row in g]
+        for axis in axes:
+            groups: Dict[tuple, list] = {}
+            for i in range(self.D):
+                for j in range(self.M):
+                    c = self.coords[i][j]
+                    key = tuple(v for a, v in c.items() if a != axis)
+                    groups.setdefault(key, []).append((c[axis], i, j))
+            for members in groups.values():
+                members.sort()
+                vals = self.mesh.pmean([out[i][j] for _, i, j in members],
+                                       axis)
+                for (_, i, j), v in zip(members, vals):
+                    out[i][j] = v
+        return out
 
 
 def tree_specs(specs: Dict[str, Any], tree) -> Any:

@@ -136,6 +136,24 @@ def init_attention(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
     }
 
 
+def _qkv(p, x, cfg: ModelConfig, positions):
+    """The queries, keys and values of ``x``, rotated."""
+    dt = cfg.cdtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _cache_range(cache_index: int, n: int, S_max: int) -> int:
+    end = cache_index + n
+    if not 0 <= cache_index <= end <= S_max:
+        raise ValueError(f"cache positions [{cache_index}, {end}) outside "
+                         f"a cache of {S_max}")
+    return end
+
+
 def attention(p, x, cfg: ModelConfig, *, positions, cache=None,
               cache_index=None):
     """Self attention. If ``cache`` is given (dict with k, v of shape
@@ -143,19 +161,12 @@ def attention(p, x, cfg: ModelConfig, *, positions, cache=None,
     ``cache_index`` (in place, where the reference returns an updated copy)
     and attends over the cache. Returns (out, cache)."""
     dt = cfg.cdtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(p, x, cfg, positions)
     if cache is None:
         out = attention_core(q, k, v, causal=True, chunk=cfg.attn_chunk)
     else:
         ck, cv = cache["k"], cache["v"]
-        end = cache_index + k.shape[1]
-        if not 0 <= cache_index <= end <= ck.shape[1]:
-            raise ValueError(f"cache positions [{cache_index}, {end}) outside "
-                             f"a cache of {ck.shape[1]}")
+        end = _cache_range(cache_index, k.shape[1], ck.shape[1])
         ck[:, cache_index:end] = k.to(ck.dtype)
         cv[:, cache_index:end] = v.to(cv.dtype)
         # decode: positions past cache_index are masked by the causal offset
@@ -163,6 +174,80 @@ def attention(p, x, cfg: ModelConfig, *, positions, cache=None,
                              q_offset=cache_index, chunk=0)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
     return out, cache
+
+
+def _kv_heads(k, v, cfg: ModelConfig, heads: int, j: int):
+    """The keys and values that model rank ``j``'s ``heads`` query heads
+    (its block of ``num_heads``) read, where the kv heads are replicated:
+    their kv groups' contiguous block where the rank's heads are whole
+    groups, else one kv head for each query head (kv head h // q_per_kv
+    for query head h)."""
+    G = cfg.q_per_kv
+    if heads == cfg.num_heads or k.shape[2] < cfg.num_kv_heads:
+        return k, v                 # q replicated, or k and v sharded too
+    if heads % G == 0:
+        lo = j * heads // G
+        return k[:, :, lo:lo + heads // G], v[:, :, lo:lo + heads // G]
+    idx = torch.arange(j * heads, (j + 1) * heads, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def attention_sharded(ps, hs, cfg: ModelConfig, ents, *, positions,
+                      caches=None, layout=None, cache_index=None):
+    """Self attention over a (data, model) mesh (``common.Entries``), the
+    tensor-parallel layout of the reference's specs. ``ps`` is the grid of
+    each entry's blocks of ``wq``, ``wk``, ``wv`` and ``wo``: q by head
+    where ``model`` divides ``num_heads``, k and v by kv head where it
+    divides ``num_kv_heads``, else replicated; where q is sharded and k and
+    v are not, a rank reads the kv head of each of its query heads
+    (``_kv_heads``). ``hs`` is the grid of entry inputs, each its data
+    shard's whole sequence. With ``caches`` (the grid of each entry's part
+    of one layer's k and v cache, laid out as ``Model.cache_specs`` says:
+    ``layout`` "heads" (by kv head), "seq" (by position over ``model``) or
+    None (replicated)), a decode step: each entry writes its k and v at
+    ``cache_index`` into its part, where "seq" only the rank whose
+    positions hold it; a "seq" cache is all-gathered over ``model``
+    (counted) before the scores. Returns (the grid of outputs, whether
+    they are partial sums over ``model``: ``wo`` is row-parallel where q
+    is sharded, and the caller all-reduces or reduce-scatters them; where
+    q is replicated each entry's output is complete)."""
+    dt = cfg.cdtype
+    qkv = ents.grid(lambda i, j: _qkv(ps[i][j], hs[i][j], cfg, positions))
+    heads = ps[0][0]["wq"].shape[1]
+    if caches is None:
+        kv = [[(k, v) for _, k, v in row] for row in qkv]
+    else:
+        for i in range(ents.D):
+            for j in range(ents.M):
+                _, k, v = qkv[i][j]
+                c = caches[i][j]
+                n = c["k"].shape[1]
+                lo = j * n if layout == "seq" else 0
+                S_max = n * ents.M if layout == "seq" else n
+                end = _cache_range(cache_index, k.shape[1], S_max)
+                a, b = max(cache_index, lo), min(end, lo + n)
+                for name, t in (("k", k), ("v", v)) if a < b else ():
+                    c[name][:, a - lo:b - lo] = t[
+                        :, a - cache_index:b - cache_index].to(c[name].dtype)
+        ck = [[c["k"] for c in row] for row in caches]
+        cv = [[c["v"] for c in row] for row in caches]
+        if layout == "seq":
+            ck = ents.model_all_gather(ck, 1)
+            cv = ents.model_all_gather(cv, 1)
+        kv = [[(a.to(dt), b.to(dt)) for a, b in zip(ra, rb)]
+              for ra, rb in zip(ck, cv)]
+
+    def out(i, j):
+        q = qkv[i][j][0]
+        k, v = _kv_heads(*kv[i][j], cfg, heads, j)
+        if caches is None:
+            o = attention_core(q, k, v, causal=True, chunk=cfg.attn_chunk)
+        else:
+            o = attention_core(q, k, v, causal=True, q_offset=cache_index,
+                               chunk=0)
+        return torch.einsum("bshk,hkd->bsd", o, ps[i][j]["wo"].to(dt))
+
+    return ents.grid(out), heads < cfg.num_heads
 
 
 # ---------------------------------------------------------------------------

@@ -58,10 +58,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.common import (TP_AXIS, Initializer, ModelConfig, P,
-                                      axis_size, data_axes, tree_specs,
-                                      unstack)
-from repro_torch.tree import flatten
+from repro_torch.models.common import (DATA_AXES, TP_AXIS, Entries,
+                                      Initializer, ModelConfig, P, axis_size,
+                                      dp_for, shard, tree_specs, unstack)
+from repro_torch.tree import flatten, map_tree
 
 # the leaves a block keeps in cfg.param_dtype: the norms' scales, the
 # router, which routes in float32, and the SSM leaves the reference reads in
@@ -82,6 +82,42 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: block_pattern {cfg.block_pattern!r}")
     if cfg.remat not in _REMAT:
         raise ValueError(f"{cfg.name}: remat {cfg.remat!r}")
+
+
+def runs_sharded(mesh, device=None) -> bool:
+    """Whether a model on ``device`` runs sharded over ``mesh`` at run
+    time: a mesh with an axis of more than one entry, whose entries (and
+    the model) are not on ``meta``. A mesh whose every axis has size 1
+    runs the one-device program, as the reference's (1, 1) mesh gives the
+    unsharded result; a mesh of ``meta`` entries (the dry run's production
+    meshes) only gives the specs (``cache_specs``)."""
+    if mesh is None or all(n == 1 for n in mesh.shape.values()):
+        return False
+    if device is not None and torch.device(device).type == "meta":
+        return False
+    return any(torch.device(d).type != "meta" for d in mesh.devices.flat)
+
+
+def check_sharded(cfg: ModelConfig, mesh) -> None:
+    """Raise ``ValueError`` for a config, or a mesh, that the sharded
+    program does not cover yet, naming the ROADMAP item that will bring
+    it; the model never runs unsharded in its place."""
+    if cfg.mla or cfg.first_dense:
+        raise ValueError(f"{cfg.name}: MLA and its dense prefix do not run "
+                         f"sharded over a mesh yet (ROADMAP item 30)")
+    if cfg.cross_attn_every:
+        raise ValueError(f"{cfg.name}: the VLM's cross-attention groups do "
+                         f"not run sharded over a mesh yet (ROADMAP item "
+                         f"31)")
+    if cfg.block_pattern != "attn":
+        raise ValueError(f"{cfg.name}: {cfg.block_pattern} does not run "
+                         f"sharded over a mesh yet (ROADMAP item 32)")
+    other = [a for a in mesh.axis_names
+             if a not in (*DATA_AXES, TP_AXIS) and mesh.shape[a] > 1]
+    if other and axis_size(mesh, TP_AXIS) > 1:
+        raise ValueError(f"axes {other} beside a model axis of "
+                         f"{axis_size(mesh, TP_AXIS)}: GPipe with a model "
+                         f"axis is ROADMAP item 34")
 
 
 def _init_attn_block(ini, cfg: ModelConfig, path: str, stack, use_moe: bool):
@@ -265,10 +301,23 @@ class Model(nn.Module):
     straight into those dtypes; on ``meta`` nothing is drawn, at any
     size, and every step traces shapes only (the dry run's model).
     ``embed`` is None under ``embedding_inputs``; ``cross`` holds the VLM's
-    G cross-attention groups (empty for every other model). ``mesh`` (a
-    ``DeviceMesh``, or None) is the mesh the reference would shard the
-    model over; the port runs on one device whatever it is, and reads it
-    for the specs of the cache (``cache_specs``)."""
+    G cross-attention groups (empty for every other model).
+
+    ``mesh`` (a ``launch/mesh.py:DeviceMesh`` with axes "data" and
+    "model", and "pod" where present, or None): where ``runs_sharded``, the
+    model runs sharded over it at run time, as the reference's does under
+    the same mesh (``_sharded``): each entry computes with its block of
+    every leaf by ``param_specs`` (on the model's device a view of the
+    model's own parameter, so no parameter is copied for each entry and
+    gradients reach ``parameters()`` by themselves; on another device a
+    copy), the batch split over the data axes where they divide it
+    (``common.dp_for``), attention and the MLPs tensor-parallel over
+    ``model``, the MoE blocks expert-parallel, the residual held as S / m
+    slices under ``cfg.seq_parallel``, and every byte moved between
+    entries counted in ``mesh.hops``. Configs the sharded program does not
+    cover raise (``check_sharded``). None, or a mesh whose every axis has
+    size 1, runs the one-device program; a mesh of ``meta`` entries gives
+    only the specs of the cache (``cache_specs``)."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  params=None, trainable: bool = False, mesh=None):
@@ -278,6 +327,12 @@ class Model(nn.Module):
         self.trainable = trainable
         self.mesh = mesh
         device = resolve_device(device)
+        self._ents = None
+        if runs_sharded(mesh, device):
+            check_sharded(cfg, mesh)
+            self._ents = Entries(mesh)
+            self._specs = param_specs(cfg, mesh)
+            self._parts_kept = None
         dt = cfg.pdtype if trainable else cfg.cdtype
         if params is None:
             params = init_params(cfg, seed=seed, device=device, dtype=dt)
@@ -510,6 +565,8 @@ class Model(nn.Module):
         (B, S, d)), and the summed load-balance loss of the MoE blocks
         (zero without them), as the reference's ``Model.forward``. The VLM
         needs ``batch["patches"]`` (B, P, d), cast to the compute dtype."""
+        if self._ents is not None:
+            return self._sharded(batch)
         x, aux = self._hidden(batch)
         return self._logits(x), aux
 
@@ -523,7 +580,14 @@ class Model(nn.Module):
         cfg = self.cfg
         labels = torch.as_tensor(batch["labels"]).to(self.device).long()
         S, C = labels.shape[1], cfg.logit_chunk
-        if C and S % C == 0 and S > C:
+        if C and S % C == 0 and S > C and self._ents is not None:
+            heads, aux = self._sharded(batch, chunk=C)
+            tot = n = torch.zeros((), device=self.device)
+            for c, logits in zip(range(0, S, C), heads):
+                s, k = _masked_ce_sums(logits, labels[:, c:c + C])
+                tot, n = tot + s, n + k
+            ce = tot / torch.clamp(n, min=1.0)
+        elif C and S % C == 0 and S > C:
             x, aux = self._hidden(batch)
             h = self._head_in(x)
             head = self.head.to(cfg.cdtype)
@@ -544,6 +608,8 @@ class Model(nn.Module):
         (B, 1, d)) at position ``cache_index``; the VLM's cross-attention
         reads the patch k and v pre-cached under ``cross_groups.cross_kv``.
         Returns (logits (B, 1, V), cache), the cache written in place."""
+        if self._ents is not None:
+            return self._sharded(batch, cache, int(cache_index))[0], cache
         x = self._embed_in(batch)
         positions = torch.full((x.shape[0], 1), int(cache_index),
                                device=x.device)
@@ -618,12 +684,7 @@ class Model(nn.Module):
         cfg, mesh = self.cfg, self.mesh
         m = axis_size(mesh, TP_AXIS)
         tp = TP_AXIS if m > 1 else None
-        dp = None
-        if mesh is not None:
-            n = 1
-            for a in data_axes(mesh):
-                n *= axis_size(mesh, a)
-            dp = data_axes(mesh) if (n > 1 and B % n == 0) else None
+        dp = dp_for(mesh, B)
 
         def kv(stack, KH, S=S_max):
             lead = (None,) * stack
@@ -681,6 +742,221 @@ class Model(nn.Module):
         if self.lm_head is not None:
             p["lm_head"] = self.lm_head
         return p
+
+    # ------------------------------------------------------------------
+    # run-time sharding over a (data, model) mesh
+    # ------------------------------------------------------------------
+
+    def _parts(self):
+        """The grid of each entry's parameter tree: its block of every leaf
+        by ``param_specs`` (``Entries.part``). A serving model keeps it once
+        built (the views follow in-place updates of the parameters); a
+        trainable one builds it anew at each call, so that autograd
+        records the views."""
+        if self._parts_kept is not None:
+            return self._parts_kept
+        e, tree = self._ents, self.params()
+        parts = e.grid(lambda i, j: map_tree(
+            lambda x, s: e.part(x, s, i, j), tree, self._specs))
+        if not self.trainable:
+            self._parts_kept = parts
+        return parts
+
+    def _add(self, a, b):
+        return self._ents.grid(lambda i, j: a[i][j] + b[i][j])
+
+    def _slices(self, g):
+        """Each entry's S / m slice of its (Bl, S, d) value, by model
+        rank: a cut of a value the ranks hold alike, no transfer."""
+        e = self._ents
+        return e.grid(lambda i, j: g[i][j].chunk(e.M, 1)[j])
+
+    def _reduce(self, g, partial: bool, sp: bool):
+        """A sublayer's outputs into the residual's layout: partial sums
+        over ``model`` all-reduced, or under the sequence-parallel residual
+        reduce-scattered into its S / m slices; complete outputs kept, or
+        cut into those slices."""
+        e = self._ents
+        if partial:
+            return e.model_reduce_scatter(g, 1) if sp else \
+                e.model_all_reduce(g)
+        return self._slices(g) if sp else g
+
+    def _norm(self, ps, name, X):
+        cfg = self.cfg
+        return self._ents.grid(lambda i, j: ll.rmsnorm(
+            ps[i][j][name], X[i][j], cfg.norm_eps, fast=cfg.fast_norm))
+
+    def _mlp_sharded(self, ps, name, H, sp):
+        """A SwiGLU MLP, ``w_gate`` and ``w_up`` by column and ``w_down``
+        by row over ``model`` where it divides the hidden width (then an
+        all-reduce, or a reduce-scatter), else replicated; under the
+        sequence-parallel residual its input slices are all-gathered
+        first."""
+        e = self._ents
+        if sp:
+            H = e.model_all_gather(H, 1)
+        Y = e.grid(lambda i, j: ll.mlp(ps[i][j][name], H[i][j],
+                                       self.cfg.cdtype))
+        return self._reduce(Y, self._specs["blocks"][0][name]["w_down"][0]
+                            == TP_AXIS, sp)
+
+    def _moe_sharded(self, ps, H, sp):
+        """The MoE sublayer (``moe.moe_layer`` over the mesh): each entry
+        routes its data shard's whole sequence, or under
+        ``moe_sp_dispatch`` (where ``model`` divides S and S >= m) its
+        rank's S / m slice, as the reference's ``shard_map`` takes it; the
+        outputs come back in the residual's layout. Returns (outputs, the
+        averaged load-balance loss)."""
+        cfg, e = self.cfg, self._ents
+        S = H[0][0].shape[1] * (e.M if sp else 1)
+        spd = (cfg.moe_sp_dispatch and TP_AXIS in e.mesh.axis_names
+               and S % e.M == 0 and S >= e.M)
+        if spd and not sp:
+            H_in = self._slices(H)
+        elif sp and not spd:
+            H_in = e.model_all_gather(H, 1)
+        else:
+            H_in = H
+        Y, aux = moe_mod.moe_layer(e.grid(lambda i, j: ps[i][j]["moe"]),
+                                   H_in, cfg, e)
+        if spd and not sp:
+            Y = e.model_all_gather(Y, 1)
+        elif sp and not spd:
+            Y = self._slices(Y)
+        if "shared" in ps[0][0]:
+            Y = self._add(Y, self._mlp_sharded(ps, "shared", H, sp))
+        return Y, aux
+
+    def _block_sharded(self, ps, X, positions, caches, layout, cache_index,
+                       sp):
+        """``_attn_block`` over the mesh: ``ps`` and ``X`` the grids of
+        each entry's block parameters and residual (the whole sequence, or
+        under ``sp`` its S / m slice). Returns (X, the grid of the MoE
+        load-balance loss, or None)."""
+        e = self._ents
+        H = self._norm(ps, "ln1", X)
+        if sp:
+            H = e.model_all_gather(H, 1)
+        A, partial = ll.attention_sharded(
+            e.grid(lambda i, j: ps[i][j]["attn"]), H, self.cfg, e,
+            positions=positions, caches=caches, layout=layout,
+            cache_index=cache_index)
+        X = self._add(X, self._reduce(A, partial, sp))
+        H = self._norm(ps, "ln2", X)
+        if "moe" not in ps[0][0]:
+            return self._add(X, self._mlp_sharded(ps, "mlp", H, sp)), None
+        Y, aux = self._moe_sharded(ps, H, sp)
+        return self._add(X, Y), aux
+
+    def _embed_sharded(self, parts, rows):
+        """Each entry's embeddings of its data row's tokens: where the
+        table is cut by vocabulary over ``model``, each rank looks up the
+        tokens its rows hold, zeros elsewhere, and the ranks' lookups are
+        all-reduced (one of them is non-zero: the sum is exact); else the
+        whole table on each entry. Under ``embedding_inputs`` the row's
+        embeddings, in the compute dtype."""
+        cfg, e = self.cfg, self._ents
+        dt = cfg.cdtype
+        if cfg.embedding_inputs:
+            return e.grid(lambda i, j: rows[i].to(device=e.devices[i][j],
+                                                  dtype=dt))
+
+        def look(i, j):
+            emb = parts[i][j]["embed"].to(dt)
+            tok = rows[i].long().to(emb.device)
+            n = emb.shape[0]
+            if n == cfg.vocab_size:
+                return emb[tok]
+            local = tok - j * n
+            inside = (local >= 0) & (local < n)
+            return torch.where(inside[..., None],
+                               emb[local.clamp(0, n - 1)], 0)
+
+        X = e.grid(look)
+        if parts[0][0]["embed"].shape[0] < cfg.vocab_size:
+            X = e.model_all_reduce(X)
+        return X
+
+    def _head_sharded(self, parts, X, split: bool):
+        """The logits of the residual grid ``X`` (each entry its data
+        row's whole sequence), the head by vocabulary over ``model`` where
+        it divides the vocabulary (the tied head is the embedding's
+        transpose), all-gathered over ``model``; the rows' logits
+        concatenated on the model's device (``split``: the batch was cut
+        over the data rows; else row 0's)."""
+        cfg, e = self.cfg, self._ents
+
+        def logits(i, j):
+            p = parts[i][j]
+            h = ll.rmsnorm(p["final_norm"], X[i][j], cfg.norm_eps)
+            head = p["embed"].T if self.lm_head is None else p["lm_head"]
+            return torch.einsum("bsd,dv->bsv", h, head.to(cfg.cdtype))
+
+        L = e.grid(logits)
+        if L[0][0].shape[-1] < cfg.vocab_size:
+            L = e.model_all_gather(L, -1)
+        rows = [row[0].to(self.device) for row in L]
+        return torch.cat(rows, 0) if split else rows[0]
+
+    def _sharded(self, batch, cache=None, cache_index=None, chunk=0):
+        """The model over its mesh: (the logits (B, S, V), or where
+        ``chunk`` the list of each chunk of positions' logits, and the
+        summed load-balance loss). With ``cache`` a decode step at
+        ``cache_index``: each entry reads and writes its part of the cache
+        as ``cache_specs`` lays it out (a view of the cache, or where its
+        device is another a copy, written back after the layer)."""
+        cfg, e = self.cfg, self._ents
+        parts = self._parts()
+        inp = torch.as_tensor(batch["embeds" if cfg.embedding_inputs
+                                    else "tokens"]).to(self.device)
+        B, S = inp.shape[:2]
+        split = dp_for(self.mesh, B) is not None
+        if not split and e.D > 1 and cfg.moe:
+            raise ValueError(f"a batch of {B} does not split over the "
+                             f"{e.D} data shards the MoE layer routes")
+        rows = list(inp.chunk(e.D)) if split else [inp] * e.D
+        X = self._embed_sharded(parts, rows)
+        decode = cache is not None
+        positions = (torch.full((1, 1), cache_index, device=self.device)
+                     if decode else
+                     torch.arange(S, device=self.device)[None, :])
+        sp = cfg.seq_parallel and e.M > 1 and S % e.M == 0
+        if sp:
+            X = self._slices(X)
+        if decode:
+            specs = self.cache_specs(B, cache["blocks"]["k"].shape[2])
+            cs, kv = specs["blocks"]["k"], cache["blocks"]
+            layout = ("heads" if cs[3] == TP_AXIS else
+                      "seq" if cs[2] == TP_AXIS else None)
+        run = _call if decode else self._remat
+        aux = torch.zeros((), device=self.device)
+        for n in range(len(self.blocks)):
+            ps = e.grid(lambda i, j: parts[i][j]["blocks"][n])
+            views = caches = None
+            if decode:
+                views = e.grid(lambda i, j: {k: shard(
+                    v, cs, self.mesh, e.coords[i][j])[n]
+                    for k, v in kv.items()})
+                caches = e.grid(lambda i, j: {
+                    k: v.to(e.devices[i][j]) for k, v in
+                    views[i][j].items()})
+            X, a = run(self._block_sharded, ps, X, positions, caches,
+                       layout if decode else None, cache_index, sp)
+            if a is not None:
+                aux = aux + a[0][0].to(self.device)
+            for vrow, crow in zip(views or (), caches or ()):
+                for v, c in zip(vrow, crow):
+                    for k in v:
+                        if c[k] is not v[k]:
+                            v[k].copy_(c[k])
+        if sp:
+            X = e.model_all_gather(X, 1)
+        if chunk:
+            return [self._head_sharded(parts, [[x[:, c:c + chunk] for x in row]
+                                               for row in X], split)
+                    for c in range(0, S, chunk)], aux
+        return self._head_sharded(parts, X, split), aux
 
 
 # ---------------------------------------------------------------------------
