@@ -180,7 +180,26 @@ Phases, each failing loudly (no phase's failure is caught):
    float64 (olmoe at ``capacity_factor=1.0`` with and without
    ``moe_sp_dispatch``: loss, logits, expert sets, gradients; ``yi-6b``
    with ``seq_parallel`` and ``fast_norm``: loss, logits). No kernel of
-   the port runs on this path.
+   the port runs on this path;
+12. MLA, the VLM's cross-attention groups, RWKV6 and Mamba2 sharded over
+   the same (2, 4) mesh (``sharded_families``): (a)
+   ``deepseek-v2-lite-16b`` at published size, seed-0 weights, served
+   through ``serve(mesh=...)`` (batch 4, prompt 16, 16 greedy tokens):
+   no assignment dropped, peak memory beside phase 8's one-device serve,
+   one decode step's bytes of each collective kind against their
+   formula, a warm step's ms beside phase 8's; its first 3 layers (the
+   dense prefix and 2 MoE blocks) in float64 on the mesh against one
+   device over the prompt and 4 greedy steps: logits within 1e-9 of
+   their largest, expert sets and tokens equal; (b) ``rwkv6-3b`` (4
+   layers), ``zamba2-2.7b`` (2 groups: 12 Mamba2 layers and the shared
+   block) and ``llama-3.2-vision-11b`` (its first group, 2 of 5 self
+   blocks, gate set non-zero, patch cache filled from seeded patches) at
+   published width, cut from their seed-0 draws: in float64 on the mesh
+   against one device over the prompt and 4 greedy steps, logits and
+   every cache leaf within 1e-9 of their largest; in bfloat16, one
+   decode step's bytes by kind against their formula, a warm step's ms
+   on the mesh and on one device, peak memory. No kernel of the port
+   runs on this path.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
@@ -1341,7 +1360,9 @@ def serve_models(dev, gpu):
     drawn at 2 layers is no stand-in: a stacked leaf takes its fan-in from
     the layer axis, so its MoE blocks' matrices come 3-5x larger than the
     served model's.) The SSM archs' own checks are ``ssm_checks``'s, the
-    VLM's ``vlm_checks``' and the audio model's ``audio_checks``'."""
+    VLM's ``vlm_checks``' and the audio model's ``audio_checks``'.
+    Returns ({arch: ms a decode step}, {arch: its serve's peak memory,
+    bytes})."""
     import numpy as np
     import torch
     from _model_cases import bf16_tolerance, f32_tolerance
@@ -1620,7 +1641,7 @@ def serve_models(dev, gpu):
                 fail(f"[serve {arch}] card and CPU float32 logits differ by "
                      f"{err}, beyond the float32 tolerance {tol}")
 
-    decode_ms = {}
+    decode_ms, peaks = {}, {}
     for arch, runs in SERVED:
         cfg = get_config(arch)
         t_arch = time.monotonic()
@@ -1629,7 +1650,7 @@ def serve_models(dev, gpu):
             torch.cuda.reset_peak_memory_stats(dev)
             res = serve(arch, smoke=False, batch=B, prompt_len=P,
                         gen_tokens=G, seed=0, quiet=True, device=dev)
-            peak = torch.cuda.max_memory_allocated(dev)
+            peak = peaks[arch] = torch.cuda.max_memory_allocated(dev)
             toks = res["tokens"]
             if toks.shape != (B, G) or toks.min() < 0 or \
                     toks.max() >= cfg.vocab_size:
@@ -1758,7 +1779,7 @@ def serve_models(dev, gpu):
         torch.cuda.empty_cache()
         log(f"[serve {arch}] phase 8 for this arch took "
             f"{time.monotonic() - t_arch:.1f} s")
-    return decode_ms
+    return decode_ms, peaks
 
 
 def quality_seed(cell: str, seed: int):
@@ -3046,6 +3067,343 @@ def sharded_checks(dev, gpu, cut, futures, routes):
         torch.cuda.empty_cache()
 
 
+# --- phase 12: MLA, the VLM's groups, RWKV6 and Mamba2 sharded -----------
+
+FAMILY_ARCH = "deepseek-v2-lite-16b"
+# (arch, the layers kept from its seed-0 draw at published width)
+FAMILY_CUTS = (("rwkv6-3b", 4), ("zamba2-2.7b", 12),
+               ("llama-3.2-vision-11b", 2))
+FAMILY_RTOL = 1e-9                # float64: of each compared value's largest
+
+
+def family_bytes(cfg, B, D, M, S_max, esize):
+    """The bytes of each collective kind in one decode step of ``cfg`` on
+    a (D, M) mesh, batch B, a cache of S_max positions, activations of
+    ``esize`` bytes (every participant's output, as ``DeviceMesh`` counts
+    them). ``act`` = M B d esize: every entry's copy of its data row's (B
+    / D, 1, d) activations. The vocabulary splits over ``model`` in every
+    arch here: the embedding lookup is one all-reduce of ``act``, the
+    logits one all-gather, M B V esize.
+
+    * MLA + MoE (``deepseek-v2-lite-16b``): all-reduce ``act`` for each
+      row-parallel sublayer, the prefix block's MLA (heads cut) and dense
+      MLP and each MoE block's MLA and shared expert, and the pmean of
+      each MoE block's load-balance loss over data and model (2 D M
+      float32 scalars); all-to-all L_moe x 2 directions x D M entries x
+      (E / M, M cap, d) esize (cap from a data row's B / D tokens); the
+      latent cache by position over ``model`` where it divides S_max,
+      all-gathered (c_kv and k_rope, (B / D, S_max, r + dr) an entry) in
+      every layer;
+    * RWKV6: all-reduce ``act`` for each layer's time mix (``wo`` by row)
+      and channel mix (``wv`` by row); all-gather each layer's new wkv
+      state, replicated over ``model`` in the cache ((B / D, H, hd, hd)
+      float32 an entry, each rank advancing its heads);
+    * Mamba2 (zamba2): for each Mamba2 layer, all-gather its projection
+      ((B / D, 1, 2 d_inner + 2 d_state + H) an entry) and its conv
+      outputs ((B / D, 1, conv_dim)), all-reduce its gated norm's float32
+      sums of squares ((B / D, 1, 1)) and ``out_proj``'s partial sums
+      (``act``); each group's shared block, attention and MLP, each an
+      all-reduce of ``act``; its k and v by kv head, so no gather;
+    * the VLM: each self block's attention and MLP and the group's
+      cross-attention (q by head) and MLP, each an all-reduce of ``act``;
+      the self caches and the patch cache by kv head where ``model``
+      divides the kv heads (8 over 4 at published width), else by
+      position, all-gathered ((B / D, S_max or P, KH, Dh) an entry, k and
+      v)."""
+    from repro_torch.models import moe, ssm
+
+    d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    act = M * B * d * esize
+    out = {"all-reduce": act, "all-gather": M * B * V * esize}
+    if cfg.mla:
+        n_moe = L - cfg.first_dense
+        cap = moe.capacity(B // D, cfg)
+        out["all-reduce"] += (2 * L * act + n_moe * 2 * D * M * 4)
+        out["all-to-all"] = (n_moe * 2 * D * M * cfg.num_experts * cap * d
+                             * esize)
+        if S_max % M == 0:
+            out["all-gather"] += (L * M * B * S_max
+                                  * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+                                  * esize)
+    elif cfg.block_pattern == "rwkv6":
+        H, hd = ssm.rwkv6_dims(cfg)
+        out["all-reduce"] += 2 * L * act
+        out["all-gather"] += L * M * B * H * hd * hd * 4
+    elif cfg.block_pattern == "zamba2":
+        d_inner, H, conv_dim = ssm.mamba2_dims(cfg)
+        G = L // cfg.shared_attn_every
+        out["all-reduce"] += L * act + L * M * B * 4 + 2 * G * act
+        out["all-gather"] += (L * M * B * (2 * d_inner + 2 * cfg.ssm_state
+                                           + H + conv_dim) * esize)
+    else:
+        G = L // cfg.cross_attn_every
+        out["all-reduce"] += 2 * L * act + 2 * G * act
+        if cfg.num_kv_heads % M:
+            kv = M * B * cfg.num_kv_heads * cfg.head_dim * esize
+            for n, S in ((L, S_max), (G, cfg.num_patches)):
+                out["all-gather"] += n * 2 * kv * S if S % M == 0 else 0
+    return out
+
+
+def family_run(model, prompt, gen, patches=None):
+    """``model`` (one device or sharded) over ``prompt`` (B, P) one decode
+    step a position, then ``gen`` greedy steps, from an empty cache of P +
+    gen positions (the VLM's patch cache filled from ``patches`` through
+    each group's ``wk`` and ``wv``). Returns (the logits (B, P + gen, V),
+    the greedy tokens (B, gen), the final cache)."""
+    import torch
+    B, P = prompt.shape
+    cache = model.init_cache(B, P + gen)
+    if patches is not None:
+        for g, gp in enumerate(model.cross):
+            for n in ("k", "v"):
+                w = gp["cross"][f"w{n}"]
+                cache["cross_groups"]["cross_kv"][n][g] = torch.einsum(
+                    "bpd,dhk->bphk", patches.to(w.dtype), w)
+    out, toks, nxt = [], [], prompt[:, :1]
+    for t in range(P + gen):
+        if t < P:
+            nxt = prompt[:, t:t + 1]
+        logits, cache = model.decode_step(cache, {"tokens": nxt}, t)
+        out.append(logits)
+        if t >= P - 1 and t < P + gen - 1:
+            nxt = logits[:, -1].argmax(-1, keepdim=True).to(prompt.dtype)
+            toks.append(nxt)
+    return torch.cat(out, 1), torch.cat(toks, 1), cache
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b| (0 where both are zero)."""
+    scale = float(b.abs().max())
+    err = float((a.double() - b.double()).abs().max())
+    return err / scale if scale else err
+
+
+def family_exact(dev, gpu, what, one, mesh, prompt, gen, patches=None,
+                 routes=None):
+    """``one`` (a float64 model on ``dev``) against the same weights
+    sharded over ``mesh`` (views of ``one``'s), each over ``prompt`` and
+    ``gen`` greedy steps (``family_run``): the logits and every leaf of the
+    final cache within ``FAMILY_RTOL`` of their largest, the greedy tokens
+    equal, and where ``routes`` records the MoE calls (a ``Routes``) the
+    expert sets of every step-layer equal. Returns the line's numbers."""
+    import torch
+
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import flatten
+
+    two = Model(one.cfg, device=dev, params=one.params(), mesh=mesh)
+    got = {}
+    for name, model in (("one device", one), ("(2, 4)", two)):
+        if routes is not None:
+            routes.seen.clear()
+        logits, toks, cache = family_run(model, prompt, gen, patches)
+        sets = [e.sort(-1)[0] for e, _ in routes.seen] if routes else []
+        got[name] = (logits, toks, cache, sets)
+    a, b = got["(2, 4)"], got["one device"]
+    err = rel_err(a[0], b[0])
+    cache_err = {path: rel_err(x, y) for (path, x), (_, y) in
+                 zip(flatten(a[2]), flatten(b[2]))}
+    worst = max(cache_err, key=cache_err.get)
+    same_toks = bool(torch.equal(a[1], b[1]))
+    same_sets = True
+    if routes is not None:
+        D, M = mesh.shape["data"], mesh.shape["model"]
+        # a sharded step-layer's D x M calls: entry (i, j) routes data row i
+        mesh_sets = [torch.cat([a[3][c + i * M] for i in range(D)])
+                     for c in range(0, len(a[3]), D * M)]
+        same_sets = len(mesh_sets) == len(b[3]) and all(
+            torch.equal(x, y) for x, y in zip(mesh_sets, b[3]))
+    line = (f"{what}: float64 on the (2, 4) mesh against one device over "
+            f"a prompt of {prompt.shape[1]} and {gen} greedy steps: logits "
+            f"{err:.3e} of their largest ({float(b[0].abs().max()):.4f}); "
+            f"the final cache's worst leaf {worst} {cache_err[worst]:.3e} of "
+            f"its largest; greedy tokens equal {same_toks}"
+            + (f"; expert sets equal at all {len(b[3])} step-layers "
+               f"{same_sets}" if routes is not None else "")
+            + f" (rule {FAMILY_RTOL}) ({gpu})")
+    log(line)
+    if err > FAMILY_RTOL or cache_err[worst] > FAMILY_RTOL or \
+            not same_toks or not same_sets:
+        fail(f"{line}: the sharded program parts from the one-device "
+             f"program")
+    del two, got
+    torch.cuda.empty_cache()
+
+
+def sharded_families(dev, gpu, one_ms, one_peak):
+    """Phase 12: the archs that phase 11 does not reach, sharded over the
+    (2, 4) mesh of ``cuda:0`` (``shard_mesh``). 12a: ``FAMILY_ARCH``
+    (``deepseek-v2-lite-16b``) at published width and depth, seed-0
+    bfloat16 weights, served through ``serve(mesh=...)`` (batch 4, prompt
+    16, 16 greedy tokens: half of phase 8's, for time), each MoE call's
+    routing recorded: no assignment dropped (each data shard routes 2
+    tokens x top 6 over 64 experts into 4 slots an expert), the peak
+    memory beside phase 8's one-device serve (``one_peak``; twice it
+    fails: the entries would copy their blocks), one decode step's bytes
+    of each collective kind equal to ``family_bytes``, a warm step's ms
+    (CUDA events, 8 steps) beside phase 8's ``one_ms``. Its bfloat16
+    tokens are not held equal to one device's: routing parts on
+    near-ties (phase 11). The function is held in float64 instead
+    (``family_exact``): the first 3 layers, the dense prefix and 2 MoE
+    blocks. 12b: each of ``FAMILY_CUTS`` drawn whole from seed 0 in
+    bfloat16 and cut (the VLM to its first group of 2 self blocks, its
+    gate set to a seeded value in [0.5, 1.5), its patch cache filled from
+    seeded patches x 0.02): held in float64 by ``family_exact``; then in
+    bfloat16 one decode step's bytes against ``family_bytes``, a warm
+    step's ms on the mesh and on one device, the peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_model import serve
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.tree import map_tree
+
+    B, P, G, GEN = 4, 16, 16, 4
+    mesh = shard_mesh("cuda:0")
+    D, M = mesh.shape["data"], mesh.shape["model"]
+
+    # 12a --------------------------------------------------------------
+    t0 = time.monotonic()
+    arch = FAMILY_ARCH
+    cfg = get_config(arch)
+    E = cfg.num_experts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sharded = Model(cfg, seed=0, device=dev, mesh=mesh)
+    with Routes(moe) as routed:
+        res = serve(arch, smoke=False, batch=B, prompt_len=P, gen_tokens=G,
+                    seed=0, quiet=True, device=dev, params=sharded.params(),
+                    mesh=mesh)
+    peak = torch.cuda.max_memory_allocated(dev)
+    toks = res["tokens"]
+    if toks.shape != (B, G) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"[shard2 {arch}] tokens {toks.shape} outside the vocabulary")
+    calls = [e for e, _ in routed.seen]
+    drops = sum(int((~moe.slots(e, E, moe.capacity(e.shape[0], cfg))[1])
+                    .sum()) for e in calls)
+    for c in range(0, len(calls), D * M):
+        for i in range(D):
+            row = calls[c + i * M:c + (i + 1) * M]
+            if any(not torch.equal(row[0], e) for e in row):
+                fail(f"[shard2 {arch}] the model ranks of a data row routed "
+                     f"apart")
+    cache = sharded.init_cache(B, P + G)
+    nxt = {"tokens": torch.as_tensor(toks[:, :1], dtype=torch.int32,
+                                     device=dev)}
+    mesh.hops.clear()
+    sharded.decode_step(cache, nxt, P)
+    got = dict(mesh.hops)
+    want = family_bytes(cfg, B, D, M, P + G, 2)
+    ms = time_ms(lambda: sharded.decode_step(cache, nxt, P), reps=8)
+    log(f"[shard2 {arch}] served on a (2, 4) mesh of cuda:0 (8 entries; "
+        f"{cfg.num_heads // M} heads and {E // M} experts a model rank; the "
+        f"latent cache by position): {B} x {G} tokens after a prompt of {P} "
+        f"in {res['seconds']:.3f} s ({res['seconds'] * 1e3 / (P + G):.1f} "
+        f"ms a step as served); decode step {ms:.3f} ms (CUDA events, 8 "
+        f"warm steps at position {P}) against phase 8's one-device "
+        f"{one_ms:.3f} ms, {ms / one_ms:.2f}x; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB ({peak} B) against phase 8's one-device "
+        f"serve's {one_peak / 2 ** 30:.3f} GiB; dropped assignments {drops} "
+        f"of {sum(int(e.numel()) for e in calls)} ({len(calls)} MoE calls, "
+        f"capacity {moe.capacity(B // D, cfg)} a data shard of {B // D} "
+        f"tokens); one decode step's collective bytes {got}, the formula "
+        f"{want} (all-to-all 26 x 2 x 8 x (64 x 4 x 2048 x 2 B); the latent "
+        f"cache 27 x 8 x (2 x {P + G} x 576 x 2 B); the logits 8 x (2 x "
+        f"102400 x 2 B)) ({gpu})")
+    if drops:
+        fail(f"[shard2 {arch}] {drops} assignments dropped at a shape where "
+             f"none can drop")
+    if got != want:
+        fail(f"[shard2 {arch}] collective bytes {got}, the formula {want}")
+    if peak > 2 * one_peak:
+        fail(f"[shard2 {arch}] peak memory {peak} B: the entries copy their "
+             f"blocks of the weights")
+    del cache
+    n = 3
+    params = sharded.params()
+    params["blocks"] = params["blocks"][:n - cfg.first_dense]
+    one = Model(cfg.replace(num_layers=n, dtype="float64",
+                            param_dtype="float64"), device=dev,
+                params=params)
+    del sharded, params
+    torch.cuda.empty_cache()
+    prompt = torch.as_tensor(res["prompt"], dtype=torch.int32, device=dev)
+    with Routes(moe) as routes:
+        family_exact(dev, gpu, f"[shard2 {arch}] the first {n} layers (the "
+                     f"dense prefix, 2 MoE blocks) at full width", one, mesh,
+                     prompt, GEN, routes=routes)
+    del one
+    torch.cuda.empty_cache()
+    log(f"[shard2 {arch}] took {time.monotonic() - t0:.1f} s")
+
+    # 12b --------------------------------------------------------------
+    prompt_rng = np.random.default_rng(0)
+    for arch, cut in FAMILY_CUTS:
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        drawn = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+        keep = {"blocks": drawn["blocks"][:cut]}
+        if cfg.cross_attn_every:
+            keep["cross"] = drawn["cross"][:1]
+        # copies: a kept layer would otherwise hold its whole stack
+        tree = map_tree(lambda x: x.clone(), dict(drawn, **keep))
+        del drawn, keep
+        small = cfg.replace(num_layers=cut)
+        patches = None
+        if cfg.cross_attn_every:
+            small = small.replace(cross_attn_every=cut)
+            gen = torch.Generator(device="cpu")
+            gen.manual_seed(4)
+            gate = 0.5 + float(torch.rand((), generator=gen))
+            tree["cross"][0]["cross"]["gate"].fill_(gate)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(3)
+            patches = torch.randn(B, cfg.num_patches, cfg.d_model,
+                                  generator=gen, device=dev) * 0.02
+        torch.cuda.empty_cache()
+        prompt = torch.as_tensor(prompt_rng.integers(
+            0, cfg.vocab_size, (B, P)), dtype=torch.int32, device=dev)
+        layers = ("self blocks and the cross sublayer" if patches is not None
+                  else "layers")
+        what = f"[shard2 {arch}] {cut} {layers} at full width"
+        one = Model(small.replace(dtype="float64", param_dtype="float64"),
+                    device=dev, params=tree)
+        family_exact(dev, gpu, what, one, mesh, prompt, GEN, patches)
+        del one
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        one = Model(small, device=dev, params=tree)
+        two = Model(small, device=dev, params=one.params(), mesh=mesh)
+        caches = {name: m.init_cache(B, P + G) for name, m in
+                  (("one device", one), ("(2, 4)", two))}
+        nxt = {"tokens": prompt[:, :1]}
+        mesh.hops.clear()
+        two.decode_step(caches["(2, 4)"], nxt, P)
+        got = dict(mesh.hops)
+        want = family_bytes(small, B, D, M, P + G, 2)
+        ms = {name: time_ms(lambda: m.decode_step(caches[name], nxt, P),
+                            reps=8)
+              for name, m in (("one device", one), ("(2, 4)", two))}
+        peak = torch.cuda.max_memory_allocated(dev)
+        size = sum(_nbytes(w) for w in one.parameters())
+        log(f"{what}, bfloat16 ({size / 1e9:.2f} GB of weights): decode step "
+            f"at batch {B} {ms['(2, 4)']:.3f} ms on the (2, 4) mesh, "
+            f"{ms['one device']:.3f} ms on one device "
+            f"({ms['(2, 4)'] / ms['one device']:.2f}x; CUDA events, 8 warm "
+            f"steps at position {P}); peak memory {peak / 2 ** 30:.3f} GiB "
+            f"({peak} B) with both models' caches; one step's collective "
+            f"bytes {got}, the formula {want}; the phase for this arch "
+            f"{time.monotonic() - t0:.1f} s ({gpu})")
+        if got != want:
+            fail(f"[shard2 {arch}] collective bytes {got}, the formula "
+                 f"{want}")
+        del one, two, caches, tree
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3617,7 +3975,7 @@ def main(argv=None) -> int:
     lap("7")
 
     # 8. the dense, MoE and SSM model families at full width -----------------
-    decode_ms = serve_models(dev, gpu)
+    decode_ms, serve_peaks = serve_models(dev, gpu)
     lap("8")
 
     # 9. training -------------------------------------------------------------
@@ -3631,6 +3989,11 @@ def main(argv=None) -> int:
     # 11. the attention family sharded over a (data, model) mesh -------------
     sharded_models(dev, gpu, decode_ms[SHARD_ARCH])
     lap("11")
+
+    # 12. MLA, the VLM's groups, RWKV6 and Mamba2 sharded -------------------
+    sharded_families(dev, gpu, decode_ms[FAMILY_ARCH],
+                     serve_peaks[FAMILY_ARCH])
+    lap("12")
     log(f"[time] the whole run: {time.monotonic() - laps[0]:.1f} s")
 
     log(json.dumps({"kernels": entries}))

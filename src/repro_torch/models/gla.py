@@ -18,8 +18,9 @@ Two intra-chunk strategies:
   tensor; every exponent is clipped to [-60, 0], so this is
   unconditionally stable. Chunk 16, since the tensor is O(C^2 dk).
 
-All state math is float32. The reference's three-operand einsums are
-written as an elementwise product followed by a two-operand
+All state math is float32, or float64 for a float64 model (``wide``:
+float32 is a floor, as in ``layers.py``). The reference's three-operand
+einsums are written as an elementwise product followed by a two-operand
 ``torch.einsum``, in the order stated at each. ``gla_scan_ref`` is the scan
 oracle the chunked forms are held against.
 """
@@ -28,6 +29,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.models.layers import wide
 
 
 def _split_chunks(x, c):
@@ -53,7 +56,7 @@ def _pad_to_chunks(q, k, v, g, c):
 def _bonus(qf, u, kf):
     """sum_k q u k over the last axis: the reference's three-operand
     ``einsum("...hk,hk,...hk->...h")``, as (q * u) then the sum with k."""
-    return (qf * u.float() * kf).sum(-1)
+    return (qf * wide(u) * kf).sum(-1)
 
 
 def _cumsum(x, dim: int):
@@ -68,8 +71,9 @@ def _cumsum(x, dim: int):
     return sums.to(x.dtype).movedim(-1, dim)
 
 
-def _zero_state(B, H, dk, dv, device):
-    return torch.zeros((B, H, dk, dv), dtype=torch.float32, device=device)
+def _zero_state(B, H, dk, dv, like):
+    return torch.zeros((B, H, dk, dv), dtype=wide(like).dtype,
+                       device=like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -84,12 +88,12 @@ def gla_scan_ref(q, k, v, g, *, inclusive: bool,
     log-decay. Returns (y, final_state) with state (B,H,dk,dv). f32 math."""
     B, S, H, dk = q.shape
     dv = v.shape[-1]
-    qf, kf, vf = (x.float() for x in (q, k, v))
-    gf = g.float()
+    qf, kf, vf = (wide(x) for x in (q, k, v))
+    gf = wide(g)
     if gf.ndim == 3:
         gf = gf[..., None].expand(B, S, H, dk)  # scalar decay over dk
-    state = (_zero_state(B, H, dk, dv, q.device) if init_state is None
-             else init_state.float())
+    state = (_zero_state(B, H, dk, dv, q) if init_state is None
+             else wide(init_state))
     ys = []
     for t in range(S):
         y, state = gla_step(state, qf[:, t], kf[:, t], vf[:, t], gf[:, t],
@@ -109,18 +113,18 @@ def gla_chunked_scalar(q, k, v, g, *, chunk: int = 128,
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     c = min(chunk, S)
-    q, k, v, g, S_orig = _pad_to_chunks(q, k, v, g.float(), c)
+    q, k, v, g, S_orig = _pad_to_chunks(q, k, v, wide(g), c)
     S = q.shape[1]
     qc, kc, vc = (_split_chunks(x, c) for x in (q, k, v))       # (B,N,c,H,.)
     G = _cumsum(_split_chunks(g, c), dim=2)                     # (B,N,c,H)
     Gtot = G[:, :, -1]                                          # (B,N,H)
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
 
-    state = (_zero_state(B, H, dk, dv, q.device) if init_state is None
-             else init_state.float())
+    state = (_zero_state(B, H, dk, dv, q) if init_state is None
+             else wide(init_state))
     ys = []
     for n in range(S // c):
-        qf, kf, vf = (x[:, n].float() for x in (qc, kc, vc))
+        qf, kf, vf = (wide(x[:, n]) for x in (qc, kc, vc))
         Gt, Gtot_t = G[:, n], Gtot[:, n]        # (B,c,H), (B,H)
         # intra: scores[t,s] = (q_t . k_s) exp(G_t - G_s), s <= t
         qk = torch.einsum("bthk,bshk->bhts", qf, kf)
@@ -153,7 +157,7 @@ def gla_chunked_vector(q, k, v, g, u, *, chunk: int = 16,
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     c = min(chunk, S)
-    q, k, v, g, S_orig = _pad_to_chunks(q, k, v, g.float(), c)
+    q, k, v, g, S_orig = _pad_to_chunks(q, k, v, wide(g), c)
     S = q.shape[1]
     qc, kc, vc = (_split_chunks(x, c) for x in (q, k, v))
     gc = _split_chunks(g, c)                                    # (B,N,c,H,dk)
@@ -163,11 +167,11 @@ def gla_chunked_vector(q, k, v, g, u, *, chunk: int = 16,
     smask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device),
                        diagonal=-1)                             # s < t
 
-    state = (_zero_state(B, H, dk, dv, q.device) if init_state is None
-             else init_state.float())
+    state = (_zero_state(B, H, dk, dv, q) if init_state is None
+             else wide(init_state))
     ys = []
     for n in range(S // c):
-        qf, kf, vf = (x[:, n].float() for x in (qc, kc, vc))
+        qf, kf, vf = (wide(x[:, n]) for x in (qc, kc, vc))
         Gp, Gi, Gtot_t = Gprev[:, n], G[:, n], Gtot[:, n]
         # intra (exact, stable): exponents G_{t-1,d} - G_{s,d} <= 0, s < t
         ed = torch.exp(torch.clamp(Gp[:, :, None] - Gi[:, None, :],
@@ -198,8 +202,8 @@ def gla_chunked_vector(q, k, v, g, u, *, chunk: int = 16,
 def gla_step(state, q, k, v, g, *, inclusive: bool,
              u: Optional[torch.Tensor] = None):
     """state: (B,H,dk,dv); q,k: (B,H,dk); v: (B,H,dv); g: (B,H) or (B,H,dk)."""
-    qf, kf, vf = (x.float() for x in (q, k, v))
-    gf = g.float()
+    qf, kf, vf = (wide(x) for x in (q, k, v))
+    gf = wide(g)
     if gf.ndim == 2:
         gf = gf[..., None].expand(kf.shape)
     if inclusive:

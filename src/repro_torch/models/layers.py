@@ -43,12 +43,20 @@ def init_rmsnorm(ini: Initializer, path: str, dim: int, stack=()):
 def rmsnorm(p, x, eps: float, fast: bool = False):
     """RMSNorm with float32 statistics. ``fast=True`` keeps the normalized
     tensor in the input dtype (only the per-row statistic is float32)."""
-    var = wide(x).square().mean(dim=-1, keepdim=True)
+    return rms_scale(p["scale"], x, wide(x).square().mean(dim=-1,
+                                                            keepdim=True),
+                     eps, fast)
+
+
+def rms_scale(scale, x, var, eps: float, fast: bool = False):
+    """``rmsnorm``'s output from the mean square ``var`` of the rows (float32
+    or wider), which a caller may have summed over several parts of a row
+    (``ssm.mamba2_sharded``'s gated norm)."""
     r = torch.rsqrt(var + eps)
     if fast:
-        return x * r.to(x.dtype) * p["scale"].to(x.dtype)
+        return x * r.to(x.dtype) * scale.to(x.dtype)
     out = wide(x) * r
-    return (out * p["scale"].to(out.dtype)).to(x.dtype)
+    return (out * scale.to(out.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +200,37 @@ def _kv_heads(k, v, cfg: ModelConfig, heads: int, j: int):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def write_parts(caches, rows, ents, layout, cache_index: int) -> None:
+    """Write each entry's new cache rows ``rows[i][j]`` (name -> (B, n,
+    ...)) at ``cache_index`` into its part ``caches[i][j]`` (the same
+    names), laid out as ``layout`` says: "seq" (by position over
+    ``model``: only the rank whose positions hold a row writes it), or
+    whole ("heads", by head, and None, replicated)."""
+    for i in range(ents.D):
+        for j in range(ents.M):
+            c, new = caches[i][j], rows[i][j]
+            n = next(iter(c.values())).shape[1]
+            lo = j * n if layout == "seq" else 0
+            S_max = n * ents.M if layout == "seq" else n
+            end = _cache_range(cache_index, next(iter(new.values())).shape[1],
+                               S_max)
+            a, b = max(cache_index, lo), min(end, lo + n)
+            for name, t in new.items() if a < b else ():
+                c[name][:, a - lo:b - lo] = t[
+                    :, a - cache_index:b - cache_index].to(c[name].dtype)
+
+
+def read_parts(caches, ents, layout):
+    """Each entry's whole view of its cache parts: a "seq" part (by
+    position over ``model``) all-gathered over ``model`` (counted), a part
+    by head or replicated as it is. A grid of dicts, name -> tensor."""
+    out = {name: [[c[name] for c in row] for row in caches]
+           for name in caches[0][0]}
+    if layout == "seq":
+        out = {name: ents.model_all_gather(g, 1) for name, g in out.items()}
+    return ents.grid(lambda i, j: {name: g[i][j] for name, g in out.items()})
+
+
 def attention_sharded(ps, hs, cfg: ModelConfig, ents, *, positions,
                       caches=None, layout=None, cache_index=None):
     """Self attention over a (data, model) mesh (``common.Entries``), the
@@ -206,36 +245,22 @@ def attention_sharded(ps, hs, cfg: ModelConfig, ents, *, positions,
     ``layout`` "heads" (by kv head), "seq" (by position over ``model``) or
     None (replicated)), a decode step: each entry writes its k and v at
     ``cache_index`` into its part, where "seq" only the rank whose
-    positions hold it; a "seq" cache is all-gathered over ``model``
-    (counted) before the scores. Returns (the grid of outputs, whether
-    they are partial sums over ``model``: ``wo`` is row-parallel where q
-    is sharded, and the caller all-reduces or reduce-scatters them; where
-    q is replicated each entry's output is complete)."""
+    positions hold it (``write_parts``); a "seq" cache is all-gathered
+    over ``model`` (counted) before the scores (``read_parts``). Returns
+    (the grid of outputs, whether they are partial sums over ``model``:
+    ``wo`` is row-parallel where q is sharded, and the caller all-reduces
+    or reduce-scatters them; where q is replicated each entry's output is
+    complete)."""
     dt = cfg.cdtype
     qkv = ents.grid(lambda i, j: _qkv(ps[i][j], hs[i][j], cfg, positions))
     heads = ps[0][0]["wq"].shape[1]
     if caches is None:
         kv = [[(k, v) for _, k, v in row] for row in qkv]
     else:
-        for i in range(ents.D):
-            for j in range(ents.M):
-                _, k, v = qkv[i][j]
-                c = caches[i][j]
-                n = c["k"].shape[1]
-                lo = j * n if layout == "seq" else 0
-                S_max = n * ents.M if layout == "seq" else n
-                end = _cache_range(cache_index, k.shape[1], S_max)
-                a, b = max(cache_index, lo), min(end, lo + n)
-                for name, t in (("k", k), ("v", v)) if a < b else ():
-                    c[name][:, a - lo:b - lo] = t[
-                        :, a - cache_index:b - cache_index].to(c[name].dtype)
-        ck = [[c["k"] for c in row] for row in caches]
-        cv = [[c["v"] for c in row] for row in caches]
-        if layout == "seq":
-            ck = ents.model_all_gather(ck, 1)
-            cv = ents.model_all_gather(cv, 1)
-        kv = [[(a.to(dt), b.to(dt)) for a, b in zip(ra, rb)]
-              for ra, rb in zip(ck, cv)]
+        write_parts(caches, [[{"k": k, "v": v} for _, k, v in row]
+                             for row in qkv], ents, layout, cache_index)
+        kv = [[(c["k"].to(dt), c["v"].to(dt)) for c in row]
+              for row in read_parts(caches, ents, layout)]
 
     def out(i, j):
         q = qkv[i][j][0]
@@ -283,15 +308,58 @@ def cross_attention(p, x, patches, cfg: ModelConfig, *, kv_cache=None):
     ``cfg.attn_chunk``. The output is scaled by tanh(gate), the gate in
     the compute dtype."""
     dt = cfg.cdtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     if kv_cache is not None:
         k, v = kv_cache["k"].to(dt), kv_cache["v"].to(dt)
     else:
-        k = torch.einsum("bpd,dhk->bphk", patches, p["wk"].to(dt))
-        v = torch.einsum("bpd,dhk->bphk", patches, p["wv"].to(dt))
+        k, v = _patch_kv(p, patches, dt)
+    return cross_gate(p, _cross_out(p, x, k, v, cfg), cfg)
+
+
+def _patch_kv(p, patches, dt):
+    return (torch.einsum("bpd,dhk->bphk", patches, p["wk"].to(dt)),
+            torch.einsum("bpd,dhk->bphk", patches, p["wv"].to(dt)))
+
+
+def _cross_out(p, x, k, v, cfg: ModelConfig, j: int = 0):
+    """The queries of ``x`` by ``p``'s heads over k and v, through ``wo``
+    (model rank ``j``'s heads read their kv heads: ``_kv_heads``)."""
+    dt = cfg.cdtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k, v = _kv_heads(k, v, cfg, q.shape[2], j)
     out = attention_core(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
-    return out * torch.tanh(p["gate"].to(dt))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+
+def cross_gate(p, out, cfg: ModelConfig):
+    """The cross-attention output scaled by tanh(gate)."""
+    return out * torch.tanh(p["gate"].to(cfg.cdtype))
+
+
+def cross_attention_sharded(ps, hs, patches, cfg: ModelConfig, ents, *,
+                            kv_caches=None, layout=None):
+    """``cross_attention`` over a (data, model) mesh, before its gate: q
+    and ``wo`` by head, k and v by kv head where ``model`` divides
+    ``num_kv_heads``, else replicated (each rank reading its query heads'
+    kv heads), as ``attention_sharded``. ``hs`` is the grid of entry
+    inputs, ``patches`` each data row's patches (B / D, P, d) on its
+    entries' device, or with ``kv_caches`` (decode) the grid of each
+    entry's part of the group's patch cache, laid out as ``layout`` says
+    ("heads", "seq" by patch over ``model``, all-gathered (counted) before
+    the scores, or None); decode only reads it. Returns (the grid of
+    outputs, whether they are partial sums over ``model``): the caller
+    reduces them and only then applies ``cross_gate``, as the reference
+    scales the complete output."""
+    dt = cfg.cdtype
+    if kv_caches is not None:
+        full = read_parts(kv_caches, ents, layout)
+        kv = ents.grid(lambda i, j: (full[i][j]["k"].to(dt),
+                                     full[i][j]["v"].to(dt)))
+    else:
+        kv = ents.grid(lambda i, j: _patch_kv(
+            ps[i][j], patches[i].to(ents.devices[i][j]), dt))
+    return (ents.grid(lambda i, j: _cross_out(ps[i][j], hs[i][j], *kv[i][j],
+                                              cfg, j)),
+            ps[0][0]["wq"].shape[1] < cfg.num_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -330,18 +398,12 @@ def _scores(a, b, spec):
     return torch.einsum(spec, wide(a), wide(b))
 
 
-def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
-                  cache_index=None):
-    """MLA. Without ``cache`` (prefill) the latent is expanded to per-head
-    keys and values. With ``cache`` (decode: the COMPRESSED latent, c_kv
-    (B, S_max, r) and k_rope (B, S_max, dr)) the step writes its latent at
-    ``cache_index`` in place and attends over the whole cache, positions
-    past ``cache_index`` masked: absorbed when ``cfg.mla_absorb`` (queries
-    mapped into the latent space, no per-step expansion of K/V), else
-    expanded. Returns (out, cache)."""
+def _mla_latent(p, x, cfg: ModelConfig, positions):
+    """MLA's inputs to the scores: the queries of ``p``'s heads (their
+    "nope" part, and the rotated "rope" part), the normalized latent
+    ``c_kv`` (B, S, r) and the rotated shared ``k_rope`` (B, S, dr)."""
     dt = cfg.cdtype
-    B, S, _ = x.shape
-    H, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    dn = cfg.qk_nope_dim
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -351,45 +413,108 @@ def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
     k_rope = torch.einsum("bsd,dk->bsk", x, p["wk_rope"].to(dt))
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
 
-    scale = 1.0 / math.sqrt(dn + dr)
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def _mla_prefill(p, q_nope, q_rope, c_kv, k_rope, cfg: ModelConfig):
+    """Prefill: the latent expanded to ``p``'s heads' keys and values."""
+    dt = cfg.cdtype
+    B, S, H = q_nope.shape[:3]
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(dt))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(dt))
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H,
+                                                     cfg.qk_rope_dim)], -1)
+    qf = torch.cat([q_nope, q_rope], -1)
+    return attention_core(qf, k, v, causal=True, chunk=cfg.attn_chunk,
+                          scale=_mla_scale(cfg))
+
+
+def _mla_decode(p, q_nope, q_rope, cc, cr, cfg: ModelConfig,
+                cache_index: int):
+    """Decode over the whole compressed cache ``cc`` (B, S_max, r), ``cr``
+    (B, S_max, dr), positions past ``cache_index`` masked: absorbed or
+    expanded by ``cfg.mla_absorb``, for ``p``'s heads."""
+    dt = cfg.cdtype
+    scale = _mla_scale(cfg)
+    ccd, crd = cc.to(dt), cr.to(dt)
+    kpos_ok = (torch.arange(cc.shape[1], device=cc.device)
+               <= cache_index)[None, None, None, :]
+    s_r = _scores(q_rope, crd, "bshk,btk->bhst")
+    if cfg.mla_absorb:
+        # absorb W_UK into q: q_lat (B,S,H,r); scores = q_lat . c_kv +
+        # q_rope . k_rope
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(dt))
+        s_n = _scores(q_lat, ccd, "bshr,btr->bhst")
+        w = torch.softmax(((s_n + s_r) * scale).masked_fill(
+            ~kpos_ok, -1e30), dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", w.to(dt), ccd)
+        return torch.einsum("bshr,rhk->bshk", ctx, p["wv_b"].to(dt))
+    k_nope = torch.einsum("btr,rhk->bthk", ccd, p["wk_b"].to(dt))
+    v = torch.einsum("btr,rhk->bthk", ccd, p["wv_b"].to(dt))
+    s_n = _scores(q_nope, k_nope, "bshk,bthk->bhst")
+    w = torch.softmax(((s_n + s_r) * scale).masked_fill(
+        ~kpos_ok, -1e30), dim=-1)
+    return torch.einsum("bhst,bthk->bshk", w.to(dt), v)
+
+
+def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
+                  cache_index=None):
+    """MLA. Without ``cache`` (prefill) the latent is expanded to per-head
+    keys and values. With ``cache`` (decode: the COMPRESSED latent, c_kv
+    (B, S_max, r) and k_rope (B, S_max, dr)) the step writes its latent at
+    ``cache_index`` in place and attends over the whole cache, positions
+    past ``cache_index`` masked: absorbed when ``cfg.mla_absorb`` (queries
+    mapped into the latent space, no per-step expansion of K/V), else
+    expanded. Returns (out, cache)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_latent(p, x, cfg, positions)
     if cache is None:
-        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(dt))
-        v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(dt))
-        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], -1)
-        qf = torch.cat([q_nope, q_rope], -1)
-        out = attention_core(qf, k, v, causal=True, chunk=cfg.attn_chunk,
-                             scale=scale)
+        out = _mla_prefill(p, q_nope, q_rope, c_kv, k_rope, cfg)
     else:
         cc, cr = cache["c_kv"], cache["k_rope"]
-        end = cache_index + S
+        end = cache_index + x.shape[1]
         if not 0 <= cache_index <= end <= cc.shape[1]:
             raise ValueError(f"cache positions [{cache_index}, {end}) outside "
                              f"a cache of {cc.shape[1]}")
         cc[:, cache_index:end] = c_kv.to(cc.dtype)
         cr[:, cache_index:end] = k_rope.to(cr.dtype)
-        ccd, crd = cc.to(dt), cr.to(dt)
-        kpos_ok = (torch.arange(cc.shape[1], device=x.device)
-                   <= cache_index)[None, None, None, :]
-        s_r = _scores(q_rope, crd, "bshk,btk->bhst")
-        if cfg.mla_absorb:
-            # absorb W_UK into q: q_lat (B,S,H,r); scores = q_lat . c_kv +
-            # q_rope . k_rope
-            q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(dt))
-            s_n = _scores(q_lat, ccd, "bshr,btr->bhst")
-            w = torch.softmax(((s_n + s_r) * scale).masked_fill(
-                ~kpos_ok, -1e30), dim=-1)
-            ctx = torch.einsum("bhst,btr->bshr", w.to(dt), ccd)
-            out = torch.einsum("bshr,rhk->bshk", ctx, p["wv_b"].to(dt))
-        else:
-            k_nope = torch.einsum("btr,rhk->bthk", ccd, p["wk_b"].to(dt))
-            v = torch.einsum("btr,rhk->bthk", ccd, p["wv_b"].to(dt))
-            s_n = _scores(q_nope, k_nope, "bshk,bthk->bhst")
-            w = torch.softmax(((s_n + s_r) * scale).masked_fill(
-                ~kpos_ok, -1e30), dim=-1)
-            out = torch.einsum("bhst,bthk->bshk", w.to(dt), v)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+        out = _mla_decode(p, q_nope, q_rope, cc, cr, cfg, cache_index)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cfg.cdtype))
     return out, cache
+
+
+def mla_attention_sharded(ps, hs, cfg: ModelConfig, ents, *, positions,
+                          caches=None, layout=None, cache_index=None):
+    """MLA over a (data, model) mesh: ``wq``, ``wk_b``, ``wv_b`` and ``wo``
+    by head where ``model`` divides ``num_heads`` (else replicated);
+    ``wkv_a``, ``wk_rope`` and ``kv_norm`` replicated, so every rank
+    computes the same latent ``c_kv`` and ``k_rope``. With ``caches`` (the
+    grid of each entry's part of one layer's latent cache: ``layout``
+    "seq", by position over ``model``, or None, replicated) a decode step:
+    the rank whose positions hold ``cache_index`` writes the token's
+    latent (``write_parts``), and a "seq" cache is all-gathered (counted)
+    before the scores, absorbed or expanded as ``cfg.mla_absorb`` says.
+    Returns (the grid of outputs, whether they are partial sums over
+    ``model``: ``wo`` row-parallel where the heads are cut)."""
+    lat = ents.grid(lambda i, j: _mla_latent(ps[i][j], hs[i][j], cfg,
+                                             positions))
+    if caches is None:
+        heads = ents.grid(lambda i, j: _mla_prefill(ps[i][j], *lat[i][j],
+                                                    cfg))
+    else:
+        write_parts(caches, [[{"c_kv": c, "k_rope": r} for _, _, c, r in row]
+                             for row in lat], ents, layout, cache_index)
+        full = read_parts(caches, ents, layout)
+        heads = ents.grid(lambda i, j: _mla_decode(
+            ps[i][j], *lat[i][j][:2], full[i][j]["c_kv"],
+            full[i][j]["k_rope"], cfg, cache_index))
+    dt = cfg.cdtype
+    return (ents.grid(lambda i, j: torch.einsum(
+        "bshk,hkd->bsd", heads[i][j], ps[i][j]["wo"].to(dt))),
+        ps[0][0]["wq"].shape[1] < cfg.num_heads)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ import math
 import torch
 
 from repro_torch.models.common import TP_AXIS, Initializer, ModelConfig
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import silu, wide
 
 
 def init_moe(ini: Initializer, path: str, cfg: ModelConfig, stack=()):
@@ -65,9 +65,11 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
 def route(router, xf, cfg: ModelConfig):
     """Router of the (N, d) tokens ``xf``: (probs (N, E) float32, top-k
     experts (N, k) in descending probability, their weights (N, k) in
-    float32 before renormalisation). The sort is stable, so a tie goes to
-    the lower expert index, as ``jax.lax.top_k``'s does."""
-    logits = torch.einsum("nd,de->ne", xf.float(), router.float())
+    float32 before renormalisation; float64 in a float64 model). The sort
+    is stable, so a tie goes to the lower expert index, as
+    ``jax.lax.top_k``'s does."""
+    xw = wide(xf)
+    logits = torch.einsum("nd,de->ne", xw, router.to(xw.dtype))
     probs = torch.softmax(logits, dim=-1)
     topw, tope = torch.sort(probs, dim=-1, descending=True, stable=True)
     return probs, tope[:, :cfg.top_k], topw[:, :cfg.top_k]
@@ -93,7 +95,7 @@ def _dispatch(router, x, cfg: ModelConfig, cap: int):
     topw = (topw / topw.sum(-1, keepdim=True)).to(dt)
 
     # load-balance aux (Switch): E * sum_e f_e * P_e
-    f_e = torch.nn.functional.one_hot(tope, E).float().sum(1).mean(0)
+    f_e = torch.nn.functional.one_hot(tope, E).to(probs.dtype).sum(1).mean(0)
     aux = E * (f_e * probs.mean(0)).sum()
 
     ef, wf = tope.reshape(-1), topw.reshape(-1)
@@ -125,7 +127,7 @@ def _combine(out, state, cfg: ModelConfig):
     # the weighted sum over k, accumulated in float32 and rounded once, as
     # jnp.sum accumulates a bfloat16 sum
     d = shape[-1]
-    y = (got * wf[:, None]).reshape(-1, cfg.top_k, d).float().sum(1)
+    y = wide((got * wf[:, None]).reshape(-1, cfg.top_k, d)).sum(1)
     return y.to(cfg.cdtype).reshape(shape)
 
 

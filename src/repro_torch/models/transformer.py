@@ -99,23 +99,14 @@ def runs_sharded(mesh, device=None) -> bool:
 
 
 def check_sharded(cfg: ModelConfig, mesh) -> None:
-    """Raise ``ValueError`` for a config, or a mesh, that the sharded
-    program does not cover yet, naming the ROADMAP item that will bring
-    it; the model never runs unsharded in its place."""
-    if cfg.mla or cfg.first_dense:
-        raise ValueError(f"{cfg.name}: MLA and its dense prefix do not run "
-                         f"sharded over a mesh yet (ROADMAP item 30)")
-    if cfg.cross_attn_every:
-        raise ValueError(f"{cfg.name}: the VLM's cross-attention groups do "
-                         f"not run sharded over a mesh yet (ROADMAP item "
-                         f"31)")
-    if cfg.block_pattern != "attn":
-        raise ValueError(f"{cfg.name}: {cfg.block_pattern} does not run "
-                         f"sharded over a mesh yet (ROADMAP item 32)")
+    """Raise ``ValueError`` for a mesh that the sharded program does not
+    cover yet, naming the ROADMAP item that will bring it; the model
+    never runs unsharded in its place. Every config runs sharded over a
+    (data, model) mesh."""
     other = [a for a in mesh.axis_names
              if a not in (*DATA_AXES, TP_AXIS) and mesh.shape[a] > 1]
     if other and axis_size(mesh, TP_AXIS) > 1:
-        raise ValueError(f"axes {other} beside a model axis of "
+        raise ValueError(f"{cfg.name}: axes {other} beside a model axis of "
                          f"{axis_size(mesh, TP_AXIS)}: GPipe with a model "
                          f"axis is ROADMAP item 34")
 
@@ -311,13 +302,15 @@ class Model(nn.Module):
     model's own parameter, so no parameter is copied for each entry and
     gradients reach ``parameters()`` by themselves; on another device a
     copy), the batch split over the data axes where they divide it
-    (``common.dp_for``), attention and the MLPs tensor-parallel over
+    (``common.dp_for``), attention (GQA, MLA, the VLM's cross-attention),
+    the RWKV6 and Mamba2 layers and the MLPs tensor-parallel over
     ``model``, the MoE blocks expert-parallel, the residual held as S / m
     slices under ``cfg.seq_parallel``, and every byte moved between
-    entries counted in ``mesh.hops``. Configs the sharded program does not
-    cover raise (``check_sharded``). None, or a mesh whose every axis has
-    size 1, runs the one-device program; a mesh of ``meta`` entries gives
-    only the specs of the cache (``cache_specs``)."""
+    entries counted in ``mesh.hops`` (``_run_sharded``). A stage axis
+    beside a model axis raises (``check_sharded``). None, or a mesh whose
+    every axis has size 1, runs the one-device program; a mesh of
+    ``meta`` entries gives only the specs of the cache
+    (``cache_specs``)."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  params=None, trainable: bool = False, mesh=None):
@@ -618,9 +611,10 @@ class Model(nn.Module):
 
     def init_cache(self, B: int, S_max: int):
         """The cache, as the reference's: zeros, in ``cfg.dtype`` but for
-        the recurrent states, float32. Under "blocks" k and v (L, B, S_max,
-        KH, Dh), or for MLA the compressed c_kv (L, B, S_max, r) and k_rope
-        (L, B, S_max, dr); under "prefix" one such dict, unstacked, for
+        the recurrent states, float32 (float64 in a float64 model). Under
+        "blocks" k and v (L, B, S_max, KH, Dh), or for MLA the compressed
+        c_kv (L, B, S_max, r) and k_rope (L, B, S_max, dr); under
+        "prefix" one such dict, unstacked, for
         each of the ``first_dense`` blocks. The VLM: under "cross_groups",
         "self", the self blocks' k and v (G, M, B, S_max, KH, Dh), and
         "cross_kv", the patch cache's k and v (G, B, num_patches, KH, Dh),
@@ -642,7 +636,7 @@ class Model(nn.Module):
             return {"blocks": {
                 "tm_shift": zeros(L, B, cfg.d_model),
                 "cm_shift": zeros(L, B, cfg.d_model),
-                "wkv": zeros(L, B, H, hd, hd, dtype=torch.float32)}}
+                "wkv": zeros(L, B, H, hd, hd, dtype=ssm.state_dtype(cfg))}}
         if cfg.block_pattern == "zamba2":
             G, M = _groups(cfg)
             _, H, conv_dim = ssm.mamba2_dims(cfg)
@@ -650,7 +644,8 @@ class Model(nn.Module):
                 "mamba": {"conv": zeros(G, M, B, cfg.conv_kernel - 1,
                                         conv_dim),
                           "ssm": zeros(G, M, B, H, cfg.ssm_state,
-                                       cfg.ssm_head_dim, dtype=torch.float32)},
+                                       cfg.ssm_head_dim,
+                                       dtype=ssm.state_dtype(cfg))},
                 "attn": {n: zeros(G, B, S_max, *kv) for n in ("k", "v")}}}
         if cfg.cross_attn_every:
             G, M = _groups(cfg)
@@ -787,9 +782,17 @@ class Model(nn.Module):
         return self._ents.grid(lambda i, j: ll.rmsnorm(
             ps[i][j][name], X[i][j], cfg.norm_eps, fast=cfg.fast_norm))
 
-    def _mlp_sharded(self, ps, name, H, sp):
-        """A SwiGLU MLP, ``w_gate`` and ``w_up`` by column and ``w_down``
-        by row over ``model`` where it divides the hidden width (then an
+    def _pre(self, ps, name, X, sp):
+        """A sublayer's input: the norm ``name`` of the residual grid ``X``,
+        under the sequence-parallel residual its slices all-gathered into
+        the whole sequence."""
+        H = self._norm(ps, name, X)
+        return self._ents.model_all_gather(H, 1) if sp else H
+
+    def _mlp_sharded(self, ps, name, spec, H, sp):
+        """A SwiGLU MLP (``ps[i][j][name]``; ``spec`` the specs of its
+        block), ``w_gate`` and ``w_up`` by column and ``w_down`` by row
+        over ``model`` where it divides the hidden width (then an
         all-reduce, or a reduce-scatter), else replicated; under the
         sequence-parallel residual its input slices are all-gathered
         first."""
@@ -798,15 +801,15 @@ class Model(nn.Module):
             H = e.model_all_gather(H, 1)
         Y = e.grid(lambda i, j: ll.mlp(ps[i][j][name], H[i][j],
                                        self.cfg.cdtype))
-        return self._reduce(Y, self._specs["blocks"][0][name]["w_down"][0]
-                            == TP_AXIS, sp)
+        return self._reduce(Y, spec[name]["w_down"][0] == TP_AXIS, sp)
 
-    def _moe_sharded(self, ps, H, sp):
+    def _moe_sharded(self, ps, spec, H, sp):
         """The MoE sublayer (``moe.moe_layer`` over the mesh): each entry
         routes its data shard's whole sequence, or under
         ``moe_sp_dispatch`` (where ``model`` divides S and S >= m) its
         rank's S / m slice, as the reference's ``shard_map`` takes it; the
-        outputs come back in the residual's layout. Returns (outputs, the
+        outputs come back in the residual's layout; the shared expert
+        (``spec`` its block's specs) beside it. Returns (outputs, the
         averaged load-balance loss)."""
         cfg, e = self.cfg, self._ents
         S = H[0][0].shape[1] * (e.M if sp else 1)
@@ -825,29 +828,105 @@ class Model(nn.Module):
         elif sp and not spd:
             Y = self._slices(Y)
         if "shared" in ps[0][0]:
-            Y = self._add(Y, self._mlp_sharded(ps, "shared", H, sp))
+            Y = self._add(Y, self._mlp_sharded(ps, "shared", spec, H, sp))
         return Y, aux
 
-    def _block_sharded(self, ps, X, positions, caches, layout, cache_index,
-                       sp):
+    def _block_sharded(self, ps, spec, X, positions, caches, layout,
+                       cache_index, sp):
         """``_attn_block`` over the mesh: ``ps`` and ``X`` the grids of
         each entry's block parameters and residual (the whole sequence, or
-        under ``sp`` its S / m slice). Returns (X, the grid of the MoE
-        load-balance loss, or None)."""
+        under ``sp`` its S / m slice), ``spec`` the block's specs; GQA
+        attention or MLA (``ll.attention_sharded``,
+        ``ll.mla_attention_sharded``), with ``caches`` each entry's part of
+        the block's cache, laid out as ``layout`` says. Returns (X, the
+        grid of the MoE load-balance loss, or None)."""
         e = self._ents
-        H = self._norm(ps, "ln1", X)
-        if sp:
-            H = e.model_all_gather(H, 1)
-        A, partial = ll.attention_sharded(
-            e.grid(lambda i, j: ps[i][j]["attn"]), H, self.cfg, e,
-            positions=positions, caches=caches, layout=layout,
-            cache_index=cache_index)
+        H = self._pre(ps, "ln1", X, sp)
+        attend = (ll.mla_attention_sharded if self.cfg.mla
+                  else ll.attention_sharded)
+        A, partial = attend(e.grid(lambda i, j: ps[i][j]["attn"]), H,
+                            self.cfg, e, positions=positions, caches=caches,
+                            layout=layout, cache_index=cache_index)
         X = self._add(X, self._reduce(A, partial, sp))
         H = self._norm(ps, "ln2", X)
         if "moe" not in ps[0][0]:
-            return self._add(X, self._mlp_sharded(ps, "mlp", H, sp)), None
-        Y, aux = self._moe_sharded(ps, H, sp)
+            return self._add(X, self._mlp_sharded(ps, "mlp", spec, H,
+                                                  sp)), None
+        Y, aux = self._moe_sharded(ps, spec, H, sp)
         return self._add(X, Y), aux
+
+    def _rwkv6_sharded(self, ps, X, states, sp):
+        """``_rwkv6_layer`` over the mesh (``ssm.rwkv6_time_mix_sharded``,
+        ``rwkv6_channel_mix_sharded``): the time mix's partial sums
+        reduced into the residual; the channel mix's values reduced, then
+        gated by the receptance. ``states`` is the grid of each entry's
+        part of the layer's {"tm_shift", "wkv", "cm_shift"} (decode).
+        Returns (X, the grid of new time-mix states, of new channel-mix
+        states; None without ``states``)."""
+        cfg, e = self.cfg, self._ents
+        H = self._pre(ps, "ln1", X, sp)
+        A, partial, tm_new = ssm.rwkv6_time_mix_sharded(
+            e.grid(lambda i, j: ps[i][j]["tm"]), H, cfg, e, states=states)
+        X = self._add(X, self._reduce(A, partial, sp))
+        H = self._pre(ps, "ln2", X, sp)
+        V, partial, R, cm_new = ssm.rwkv6_channel_mix_sharded(
+            e.grid(lambda i, j: ps[i][j]["cm"]), H, cfg, e, states=states)
+        V = self._reduce(V, partial, sp)
+        if sp:
+            R = self._slices(R)
+        return self._add(X, e.grid(lambda i, j: R[i][j] * V[i][j])), \
+            tm_new, cm_new
+
+    def _cache_parts(self, tree, specs, index):
+        """Each entry's part of the cache leaves ``tree`` (name -> tensor)
+        as ``specs`` lays them out, at the layer ``index`` of their stack
+        (an int, a (group, layer) pair, or None for an unstacked leaf).
+        Returns (the grid of views of the cache, the grid of parts: each
+        the view, or where its entry sits on another device a copy, which
+        ``_write_back`` returns to the view; the layout of an attention
+        cache's layer, ``_layout``)."""
+        e = self._ents
+        depth = 0 if index is None else len(index) if isinstance(
+            index, tuple) else 1
+
+        def view(i, j):
+            out = {}
+            for k, v in tree.items():
+                v = shard(v, specs[k], self.mesh, e.coords[i][j])
+                out[k] = v if index is None else v[index]
+            return out
+
+        views = e.grid(view)
+        return views, e.grid(lambda i, j: {
+            k: v.to(e.devices[i][j]) for k, v in views[i][j].items()}), \
+            _layout(next(iter(specs.values()))[depth:])
+
+    def _cached_block(self, ps, spec, X, positions, cache, specs, index,
+                      cache_index, sp):
+        """``_block_sharded`` over each entry's part of the block's cache
+        leaves ``cache`` (``specs`` their specs; None without a cache) at
+        the layer ``index`` of their stack, the parts written back
+        after."""
+        views = caches = layout = None
+        if cache is not None:
+            views, caches, layout = self._cache_parts(cache, specs, index)
+        X, aux = self._block_sharded(ps, spec, X, positions, caches, layout,
+                                     cache_index, sp)
+        if cache is not None:
+            self._write_back(views, caches)
+        return X, aux
+
+    @staticmethod
+    def _write_back(views, parts, new=None):
+        """Write ``new`` (a grid of {name: value}, or None) into the cache
+        ``parts``, and each part that is a copy back into its view."""
+        for i, (vrow, prow) in enumerate(zip(views, parts)):
+            for j, (v, c) in enumerate(zip(vrow, prow)):
+                for k, t in (new[i][j].items() if new else ()):
+                    c[k].copy_(t)
+                for k in v:
+                    if c[k] is not v[k]:
+                        v[k].copy_(c[k])
 
     def _embed_sharded(self, parts, rows):
         """Each entry's embeddings of its data row's tokens: where the
@@ -918,38 +997,24 @@ class Model(nn.Module):
         rows = list(inp.chunk(e.D)) if split else [inp] * e.D
         X = self._embed_sharded(parts, rows)
         decode = cache is not None
+        patches = None
+        if self.cross and not decode:
+            if batch.get("patches") is None:
+                raise ValueError(f"{cfg.name}: forward needs "
+                                 f'batch["patches"] (B, num_patches, '
+                                 f'd_model)')
+            pt = torch.as_tensor(batch["patches"]).to(device=self.device,
+                                                      dtype=cfg.cdtype)
+            patches = list(pt.chunk(e.D)) if split else [pt] * e.D
         positions = (torch.full((1, 1), cache_index, device=self.device)
                      if decode else
                      torch.arange(S, device=self.device)[None, :])
         sp = cfg.seq_parallel and e.M > 1 and S % e.M == 0
         if sp:
             X = self._slices(X)
-        if decode:
-            specs = self.cache_specs(B, cache["blocks"]["k"].shape[2])
-            cs, kv = specs["blocks"]["k"], cache["blocks"]
-            layout = ("heads" if cs[3] == TP_AXIS else
-                      "seq" if cs[2] == TP_AXIS else None)
-        run = _call if decode else self._remat
-        aux = torch.zeros((), device=self.device)
-        for n in range(len(self.blocks)):
-            ps = e.grid(lambda i, j: parts[i][j]["blocks"][n])
-            views = caches = None
-            if decode:
-                views = e.grid(lambda i, j: {k: shard(
-                    v, cs, self.mesh, e.coords[i][j])[n]
-                    for k, v in kv.items()})
-                caches = e.grid(lambda i, j: {
-                    k: v.to(e.devices[i][j]) for k, v in
-                    views[i][j].items()})
-            X, a = run(self._block_sharded, ps, X, positions, caches,
-                       layout if decode else None, cache_index, sp)
-            if a is not None:
-                aux = aux + a[0][0].to(self.device)
-            for vrow, crow in zip(views or (), caches or ()):
-                for v, c in zip(vrow, crow):
-                    for k in v:
-                        if c[k] is not v[k]:
-                            v[k].copy_(c[k])
+        specs = self.cache_specs(B, _cache_len(cache)) if decode else None
+        X, aux = self._run_sharded(parts, X, positions, cache, specs,
+                                   cache_index, sp, patches)
         if sp:
             X = e.model_all_gather(X, 1)
         if chunk:
@@ -957,6 +1022,153 @@ class Model(nn.Module):
                                                for row in X], split)
                     for c in range(0, S, chunk)], aux
         return self._head_sharded(parts, X, split), aux
+
+    def _run_sharded(self, parts, X, positions, cache, specs, cache_index,
+                     sp, patches):
+        """``_run_blocks`` over the mesh, each pattern's layers in its
+        order: the ``rwkv6`` layers; zamba2's groups; the dense prefix,
+        then the VLM's groups or the blocks. ``specs`` is
+        ``cache_specs``' tree for ``cache`` (decode). Without a cache each
+        scanned layer (each group) runs under ``_remat``. Returns (X, the
+        summed load-balance loss)."""
+        cfg, e = self.cfg, self._ents
+        decode = cache is not None
+        run = _call if decode else self._remat
+        aux = torch.zeros((), device=self.device)
+
+        def entries(*path):
+            return e.grid(lambda i, j: _at(parts[i][j], *path))
+
+        if cfg.block_pattern == "rwkv6":
+            for n in range(len(self.blocks)):
+                views = states = None
+                if decode:
+                    views, states, _ = self._cache_parts(
+                        cache["blocks"], specs["blocks"], n)
+                X, tm, cm = run(self._rwkv6_sharded, entries("blocks", n), X,
+                                states, sp)
+                if decode:
+                    self._write_back(views, states, e.grid(
+                        lambda i, j: {**tm[i][j], **cm[i][j]}))
+            return X, aux
+        if cfg.block_pattern == "zamba2":
+            for g in range(len(self.blocks) // cfg.shared_attn_every):
+                X = run(self._zamba2_group_sharded, g, entries, X, positions,
+                        cache, specs, cache_index, sp)
+            return X, aux
+        for i in range(len(self.prefix)):
+            X, _ = self._cached_block(
+                entries("prefix", i), self._specs["prefix"][i], X, positions,
+                _at(cache, "prefix", i), _at(specs, "prefix", i), None,
+                cache_index, sp)
+        if self.cross:
+            for g in range(len(self.cross)):
+                X, a = run(self._vlm_group_sharded, g, entries, X, positions,
+                           cache, specs, cache_index, sp, patches)
+                aux = aux + a
+            return X, aux
+        for n in range(len(self.blocks)):
+            X, a = run(self._cached_block, entries("blocks", n),
+                       self._specs["blocks"][n], X, positions,
+                       _at(cache, "blocks"), _at(specs, "blocks"), n,
+                       cache_index, sp)
+            if a is not None:
+                aux = aux + a[0][0].to(self.device)
+        return X, aux
+
+    def _zamba2_group_sharded(self, g, entries, X, positions, cache, specs,
+                              cache_index, sp):
+        """``_zamba2_group`` over the mesh: its M Mamba2 layers
+        (``ssm.mamba2_sharded``), each entry on its part of the conv and
+        SSM states, then the shared attention block (``_block_sharded``)
+        on its part of the group's k and v cache."""
+        cfg, e = self.cfg, self._ents
+        M = cfg.shared_attn_every
+        for m in range(M):
+            ps = entries("blocks", g * M + m)
+            views = states = None
+            if cache is not None:
+                views, states, _ = self._cache_parts(
+                    cache["blocks"]["mamba"], specs["blocks"]["mamba"],
+                    (g, m))
+            Y, partial, new = ssm.mamba2_sharded(
+                e.grid(lambda i, j: ps[i][j]["mamba"]),
+                self._pre(ps, "ln", X, sp), cfg, e, states=states)
+            X = self._add(X, self._reduce(Y, partial, sp))
+            if cache is not None:
+                self._write_back(views, states, new)
+        X, _ = self._cached_block(
+            entries("shared_attn"), self._specs["shared_attn"], X, positions,
+            _at(cache, "blocks", "attn"), _at(specs, "blocks", "attn"), g,
+            cache_index, sp)
+        return X
+
+    def _vlm_group_sharded(self, g, entries, X, positions, cache, specs,
+                           cache_index, sp, patches):
+        """``_vlm_group`` over the mesh: its M self-attention blocks
+        (``_block_sharded``, their k and v under the cache's
+        ``cross_groups.self``), the cross-attention sublayer
+        (``ll.cross_attention_sharded``, over each data row's ``patches``,
+        or at decode over the entries' parts of the group's ``cross_kv``),
+        its partial sums reduced before the gate, then the MLP. Returns
+        (X, the group's summed load-balance loss)."""
+        cfg, e = self.cfg, self._ents
+        M = cfg.cross_attn_every
+        aux = torch.zeros((), device=self.device)
+        for m in range(M):
+            n = g * M + m
+            X, a = self._cached_block(
+                entries("blocks", n), self._specs["blocks"][n], X, positions,
+                _at(cache, "cross_groups", "self"),
+                _at(specs, "cross_groups", "self"), (g, m), cache_index, sp)
+            if a is not None:
+                aux = aux + a[0][0].to(self.device)
+        gp = entries("cross", g)
+        kv = layout = None
+        if cache is not None:
+            _, kv, layout = self._cache_parts(
+                cache["cross_groups"]["cross_kv"],
+                specs["cross_groups"]["cross_kv"], g)
+        A, partial = ll.cross_attention_sharded(
+            e.grid(lambda i, j: gp[i][j]["cross"]),
+            self._pre(gp, "cross_ln", X, sp), patches, cfg, e, kv_caches=kv,
+            layout=layout)
+        A = self._reduce(A, partial, sp)
+        X = self._add(X, e.grid(lambda i, j: ll.cross_gate(
+            gp[i][j]["cross"], A[i][j], cfg)))
+        Y = self._mlp_sharded(gp, "cross_mlp", self._specs["cross"][g],
+                              self._norm(gp, "cross_ln2", X), sp)
+        return self._add(X, Y), aux
+
+
+def _at(tree, *path):
+    """The subtree of ``tree`` at ``path`` (keys and indices); None where
+    ``tree`` is None (no cache)."""
+    return None if tree is None else functools.reduce(
+        lambda t, k: t[k], path, tree)
+
+
+def _layout(spec):
+    """The layout of one layer's k and v cache (or MLA's latent) by its
+    spec, (batch, position, kv head, ...): "heads" (by kv head over
+    ``model``), "seq" (by position) or None (replicated)."""
+    if len(spec) > 2 and spec[2] == TP_AXIS:
+        return "heads"
+    return "seq" if spec[1] == TP_AXIS else None
+
+
+def _cache_len(cache) -> int:
+    """S_max of a cache: the positions of its attention or latent cache (0
+    for ``rwkv6``'s, which holds none)."""
+    if "cross_groups" in cache:
+        return cache["cross_groups"]["self"]["k"].shape[3]
+    blocks = cache["blocks"]
+    if "attn" in blocks:
+        return blocks["attn"]["k"].shape[2]
+    for name in ("k", "c_kv"):
+        if name in blocks:
+            return blocks[name].shape[2]
+    return 0
 
 
 # ---------------------------------------------------------------------------

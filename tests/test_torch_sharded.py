@@ -23,8 +23,8 @@ vocabulary shards, a cache by position).
   an entry's block of a leaf shares the parameter's storage;
 * ``mesh=None`` and meshes of size-1 axes give the one-device numbers bit
   for bit and move nothing;
-* configs out of the sharded program's scope raise, and so does a batch
-  that the data axes do not divide under MoE;
+* a stage axis beside a model axis raises, and so does a batch that the
+  data axes do not divide under MoE;
 * ``serve(mesh=)`` gives the reference's greedy tokens on its (2, 4) mesh,
   and ``train(mesh=)`` the one-device losses;
 * ``DeviceMesh``'s collectives: values, byte counts, gradients, the fixed
@@ -342,16 +342,14 @@ def test_no_mesh_and_size_one_meshes_are_the_one_device_program(arch):
 
 
 @pytest.mark.parametrize("arch,names,shape,item", [
-    ("deepseek-v2-lite-16b", ("data", "model"), (2, 4), 30),
-    ("llama-3.2-vision-11b", ("data", "model"), (2, 4), 31),
-    ("rwkv6-3b", ("data", "model"), (2, 1), 32),
-    ("zamba2-2.7b", ("data", "model"), (1, 4), 32),
     ("olmoe-1b-7b", ("data", "stage", "model"), (1, 2, 2), 34),
 ])
 def test_configs_out_of_scope_raise(arch, names, shape, item):
-    """Out of the sharded program's scope: each raises on a mesh with an
-    axis above 1, naming its ROADMAP item, and never runs unsharded; on a
-    mesh of size-1 axes each builds (the one-device program)."""
+    """Out of the sharded program's scope: a stage axis beside a model
+    axis raises, naming its ROADMAP item, and never runs unsharded; on a
+    mesh of size-1 axes it builds (the one-device program). Every config
+    runs sharded over a (data, model) mesh
+    (``tests/test_torch_sharded_families.py``)."""
     cfg = get_config(arch, smoke=True)
     with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
         Model(cfg, device="cpu", mesh=mesh(shape, names))
