@@ -148,11 +148,19 @@ Phases, each failing loudly (no phase's failure is caught):
    port runs on this path;
 10. the dry run (``repro_torch.launch.dryrun``; ``dryrun_models``): (a)
    ``run_roofline_cell`` for the ten archs x the four shapes on the (16,
-   16) production mesh of ``meta`` entries, in worker processes: every
-   cell ``ok``, or ``skip`` with the reference's reason, and no
-   collective bytes; each cell's three roofline terms at 256 H100s, its
+   16) production mesh of ``meta`` entries, in worker processes, the
+   sharded program traced one entry for all: every cell ``ok``, or
+   ``skip`` with the reference's reason, and every ``ok`` cell's
+   collective bytes above 0; a ``[dryrun ARCH x SHAPE]`` line a cell
+   with its three roofline terms at 256 H100s (the collective term at
+   the data sheet's NVLink rate), its collective bytes by kind, its
    dominant term, roofline fraction and per-device argument bytes beside
-   the card's memory; (b) ``smollm-360m``'s training step at phase 9a's
+   the card's memory and the card's name and power limit, then a
+   ``[dryrun]`` line with the cells' trace seconds and the cells the
+   collective term dominates; ``[dryrun shard olmoe-1b-7b]``: phase
+   11a's decode step traced on a (2, 4) mesh of ``meta`` entries, its
+   collective bytes by kind equal to the formula phase 11 holds the card
+   to (no card time); (b) ``smollm-360m``'s training step at phase 9a's
    shape and its decode step at phase 8's, traced on ``meta`` under
    ``FlopCounterMode`` and run once on the card under it: the counts
    equal, ``torch.profiler``'s ``with_flops`` sum beside them; each
@@ -160,22 +168,28 @@ Phases, each failing loudly (no phase's failure is caught):
    and the fused estimate) beside the step phases 9a and 8 measured; (c)
    GPipe (``models/pipeline.pp_loss_fn``) for ``smollm-360m`` at full
    width and depth in float32 over a ("data", "stage") (1, 4) mesh of
-   the card, 4 microbatches of a batch of 8 x 512: the loss within 2e-4
-   of the unstaged ``Model.loss``, every gradient leaf against float64
-   within ``card_grad_rtol``, the bytes hopped between stages equal to
-   the formula; each step's ms and peak memory beside the dry run's
-   reckoning, and the bubble. No kernel of the port runs on this path;
+   the card, and over a ("data", "stage", "model") (1, 2, 4) mesh of the
+   card with the model built on it (the embedding and head sharded over
+   the model axis), 4 microbatches of a batch of 8 x 512: the loss
+   within 2e-4 of the unstaged ``Model.loss``, every gradient leaf
+   against float64 within ``card_grad_rtol``, the bytes of a step
+   (forward and backward) equal to the formula; each step's ms and peak
+   memory (beside the dry run's reckoning for the (1, 4) step), and the
+   bubble (``[gpipe smollm-360m (1, 4)]``, ``[gpipe smollm-360m (1, 2,
+   4)]``). No kernel of the port runs on this path;
 11. the attention family sharded over a (data, model) mesh
    (``Model(cfg, mesh=...)``; ``sharded_models``): ``olmoe-1b-7b`` at
    published size, seed-0 weights, served through ``serve(mesh=...)``
-   on a (2, 4) mesh of the one card at phase 8's shape beside the
-   one-device serve from the same weights: no assignment dropped on
-   either side, where each row's routing first parts from the
-   one-device run's (a near-tie in bfloat16), the peak memory of both;
+   on a (2, 4) mesh of the one card at batch 4, prompt 16, 16 greedy
+   tokens (half of phase 8's, for time) beside the one-device serve
+   from the same weights: no assignment dropped on either side, where
+   each row's routing first parts from the one-device run's (a near-tie
+   in bfloat16), the peak memory of both;
    its first 4 layers in float64 teacher-forced on the mesh against one
    device (logits, expert sets, greedy tokens); one decode step's bytes
-   of each collective kind against their formula; a warm step's ms
-   beside the one-device step's; then the first 2 layers at full width
+   of each collective kind against their formula and phase 10's
+   one-entry trace of the step; a warm step's ms beside the one-device
+   step's; then the first 2 layers at full width
    in float32 on (2, 4) meshes of the card and of the CPU against
    float64 (olmoe at ``capacity_factor=1.0`` with and without
    ``moe_sp_dispatch``: loss, logits, expert sets, gradients; ``yi-6b``
@@ -184,7 +198,7 @@ Phases, each failing loudly (no phase's failure is caught):
 12. MLA, the VLM's cross-attention groups, RWKV6 and Mamba2 sharded over
    the same (2, 4) mesh (``sharded_families``): (a)
    ``deepseek-v2-lite-16b`` at published size, seed-0 weights, served
-   through ``serve(mesh=...)`` (batch 4, prompt 16, 16 greedy tokens):
+   through ``serve(mesh=...)`` (batch 4, prompt 16, 8 greedy tokens):
    no assignment dropped, peak memory beside phase 8's one-device serve,
    one decode step's bytes of each collective kind against their
    formula, a warm step's ms beside phase 8's; its first 3 layers (the
@@ -199,7 +213,17 @@ Phases, each failing loudly (no phase's failure is caught):
    every cache leaf within 1e-9 of their largest; in bfloat16, one
    decode step's bytes by kind against their formula, a warm step's ms
    on the mesh and on one device, peak memory. No kernel of the port
-   runs on this path.
+   runs on this path;
+13. a mesh whose entries sit on two devices (``mixed_mesh``):
+   ``olmoe-1b-7b`` at published width, its first 2 layers, in float64 on
+   a (2, 4) mesh whose entries with an odd model index are the CPU and
+   the rest the card, against the (2, 4) mesh of the card alone: the
+   logits and loss of a seeded 4 x 16 batch, every gradient leaf, and 4
+   decode steps with the cache (2 fed, 2 greedy: logits, every cache
+   leaf, expert sets, greedy tokens), each within 1e-9 of its largest;
+   one decode step's collective bytes equal to phase 11's formula at
+   this shape; the peak memory on the card beside the card's mesh's
+   (``[mixed olmoe-1b-7b]``). No kernel of the port runs on this path.
 
 The inputs of one kernel call of each session are captured, checked
 against the plain version and timed: ``sched_violation`` as the ising
@@ -2324,16 +2348,84 @@ def train_ring(dev, gpu):
 # same arch, each as a shape of its own
 DRY_TRAIN = ("train_8x2048", TRAIN_S, TRAIN_B, "train")
 DRY_DECODE = ("decode_4x48", 48, 4, "decode")     # phase 8: 16 + 32 tokens
-# 10c: GPipe over a (1, 4) ("data", "stage") mesh of the one card
+# 10c: GPipe over a (1, 4) ("data", "stage") mesh of the one card, and
+# over a (1, 2, 4) ("data", "stage", "model") one: (stages, model ranks)
 PP_B, PP_S, PP_STAGES, PP_MICRO = 8, 512, 4, 4
+PP_MODEL = (2, 4)
 
 
 def dryrun_models(dev, gpu, train_ms, decode_ms):
-    """Phase 10: ``dryrun_cells`` (a), ``dryrun_against_card`` (b) and
-    ``gpipe`` (c)."""
+    """Phase 10: ``dryrun_cells`` (a), ``dryrun_shard_step``,
+    ``dryrun_against_card`` (b) and ``gpipe`` (c). Returns the one-entry
+    trace's bytes of phase 11a's step, which phase 11 must measure."""
     dryrun_cells(gpu)
+    step = dryrun_shard_step(gpu)
     dryrun_against_card(dev, gpu, train_ms, decode_ms)
     gpipe(dev, gpu)
+    return step
+
+
+# phase 11a's decode step: batch, prompt, generated tokens
+SHARD_STEP = (4, 16, 16)
+
+
+def moe_step_bytes(cfg, B, D, M, esize, aux_size):
+    """The bytes of each collective kind in one decode step of the MoE
+    attention family (``olmoe-1b-7b``) on a (D, M) mesh, batch B,
+    activations of ``esize`` bytes, the load-balance loss of ``aux_size``
+    (every participant's output): all-reduce M B d esize x (1 + L) (the
+    embedding's vocabulary shards, each layer's row-parallel attention)
+    and L x 2 D M aux_size (the load-balance loss's pmean over data and
+    model); all-to-all L x 2 directions x D M entries x (E / M, M cap, d)
+    esize (cap from a data row's B / D tokens); all-gather M B V esize
+    (the logits' vocabulary shards)."""
+    from repro_torch.models import moe
+    L, E, d = cfg.num_layers, cfg.num_experts, cfg.d_model
+    cap = moe.capacity(B // D, cfg)
+    act = M * B * d * esize
+    return {"all-reduce": act * (1 + L) + L * 2 * D * M * aux_size,
+            "all-to-all": L * 2 * D * M * E * cap * d * esize,
+            "all-gather": M * B * cfg.vocab_size * esize}
+
+
+def dryrun_shard_step(gpu):
+    """Phase 10's check of the one-entry trace (no card time): phase 11a's
+    ``olmoe-1b-7b`` decode step (published size, bfloat16, batch 4, a
+    cache of 48 written at position 16) traced on a (2, 4) mesh of
+    ``meta`` entries, entry (0, 0) for all: its collective bytes by kind
+    equal to ``moe_step_bytes``. Returns them: phase 11 must measure the
+    same on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.launch.steps import StepBundle
+    from repro_torch.models.transformer import Model
+
+    t0 = time.monotonic()
+    cfg = get_config(SHARD_ARCH)
+    B, P, G = SHARD_STEP
+    mesh = DeviceMesh(np.full((2, 4), torch.device("meta"), dtype=object),
+                      ("data", "model"))
+    model = Model(cfg, device="meta", mesh=mesh)
+    cache = model.init_cache(B, P + G)
+    batch = {"tokens": torch.empty((B, 1), dtype=torch.int32,
+                                   device="meta")}
+    rec = dr.trace(StepBundle(lambda: model.decode_step(cache, batch, P),
+                              (), (), None), mesh=mesh)
+    got = {k: v for k, v in rec["coll"].items() if v}
+    want = moe_step_bytes(cfg, B, 2, 4, 2, 4)
+    log(f"[dryrun shard {SHARD_ARCH}] phase 11a's decode step (batch {B}, "
+        f"a cache of {P + G}, position {P}) traced on a (2, 4) mesh of meta "
+        f"entries, entry (0, 0) for all 8: collective bytes {got}, the "
+        f"formula {want}; {rec['flops']:.6g} FLOP, {rec['bytes']:.6g} B "
+        f"unfused; traced in {time.monotonic() - t0:.1f} s ({gpu})")
+    if got != want:
+        fail(f"[dryrun shard {SHARD_ARCH}] the one-entry trace's collective "
+             f"bytes {got}, the formula {want}")
+    return got
 
 
 def dryrun_cells(gpu):
@@ -2341,20 +2433,26 @@ def dryrun_cells(gpu):
     on the (16, 16) production mesh of ``meta`` entries, a cell a worker
     process at a time (up to 8, spawned, joined at the end): every cell
     ``ok``, or ``skip`` with the reference's reason where ``runnable``
-    gives one (``long_500k`` for the archs with full attention). One line
-    a cell: its three terms at 256 H100s, the dominant term, the roofline
+    gives one (``long_500k`` for the archs with full attention). The
+    sharded program is traced, one entry for all, so every ``ok`` cell
+    moves collective bytes (16 divides every published vocabulary: the
+    embedding and the logits move at least). One line a cell: its three
+    terms at 256 H100s (the collective term at the data sheet's NVLink
+    rate), its collective bytes by kind, the dominant term, the roofline
     fraction, and the per-device argument bytes against one card's
-    memory."""
+    memory; then the cells the collective term dominates."""
     import concurrent.futures
     import multiprocessing
 
     import torch
 
+    from repro_torch import roofline as rl
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.launch import dryrun as dr
     from repro_torch.launch import shapes as shp
 
     t0 = time.monotonic()
+    bound = []
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     cells = [(a, s) for a in ARCH_IDS for s in shp.SHAPES]
     # the SSM archs' chunked recurrences trace longest: first in
@@ -2378,27 +2476,36 @@ def dryrun_cells(gpu):
         if reason:
             log(f"[dryrun {arch} x {shape}] skip: {reason}")
             continue
-        if rec["collective_total"] != 0:
+        if not rec["collective_total"] > 0:
             fail(f"[dryrun {arch} x {shape}] collective bytes "
-                 f"{rec['collective_bytes']} in a program that moves none")
+                 f"{rec['collective_bytes']}: the sharded program moves "
+                 f"the embedding's and the logits' vocabulary shards at "
+                 f"least")
         arg = rec["memory"]["argument_bytes"]
+        coll = {k: v for k, v in rec["collective_bytes"].items() if v}
+        if rec["dominant"] == "collective":
+            bound.append(f"{arch} x {shape}")
         log(f"[dryrun {arch} x {shape}] {rec['mesh']} ({rec['chips']} "
             f"H100s): t_compute {rec['t_compute'] * 1e3:.3f} ms, t_memory "
             f"{rec['t_memory'] * 1e3:.3f} ms (unfused), t_memory_est "
-            f"{rec['t_memory_est'] * 1e3:.3f} ms, t_collective 0 (the "
-            f"sharded model is not ported); dominant {rec['dominant']} "
-            f"(with the estimate: {rec['dominant_est']}); roofline "
-            f"fraction {rec['roofline_fraction']:.4f} (with the estimate "
-            f"{rec['roofline_fraction_est']:.4f}); {rec['hlo_flops']:.4g} "
-            f"FLOP, {rec['hlo_bytes']:.4g} B, model FLOPs "
-            f"{rec['model_flops']:.4g}; argument bytes per device {arg} "
-            f"({arg / card_bytes:.3f} of the card's {card_bytes} B); "
-            f"traces {rec['compile_s']} s")
+            f"{rec['t_memory_est'] * 1e3:.3f} ms, t_collective "
+            f"{rec['t_collective'] * 1e3:.3f} ms at "
+            f"{rl.NVLINK_BW / 1e9:.0f} GB/s a card (the data sheet's "
+            f"NVLink rate); collective bytes {coll}; dominant "
+            f"{rec['dominant']} (with the estimate: {rec['dominant_est']}); "
+            f"roofline fraction {rec['roofline_fraction']:.4f} (with the "
+            f"estimate {rec['roofline_fraction_est']:.4f}); "
+            f"{rec['hlo_flops']:.4g} FLOP, {rec['hlo_bytes']:.4g} B, model "
+            f"FLOPs {rec['model_flops']:.4g}; argument bytes per device "
+            f"{arg} ({arg / card_bytes:.3f} of the card's {card_bytes} B); "
+            f"traces {rec['compile_s']} s ({gpu})")
     log(f"[dryrun] {counts['ok']} cells ok, {counts['skip']} skipped as the "
-        f"reference skips them, on the (16, 16) mesh of meta entries, in "
+        f"reference skips them, on the (16, 16) mesh of meta entries, the "
+        f"sharded program traced one entry for all, in "
         f"{time.monotonic() - t0:.1f} s ({workers} worker processes; "
         f"{sum(r.get('compile_s', 0) for r in recs.values()):.1f} s of "
-        f"traces) ({gpu})")
+        f"traces); dominated by the collective term: {len(bound)} cells "
+        f"{bound} ({gpu})")
 
 
 def dryrun_against_card(dev, gpu, train_ms, decode_ms):
@@ -2477,18 +2584,22 @@ def dryrun_against_card(dev, gpu, train_ms, decode_ms):
 def gpipe(dev, gpu):
     """Phase 10c: ``pp_loss_fn`` for ``smollm-360m`` at full width and depth
     (32 layers, d_model 960) in float32, remat "none", weights from seed
-    0, a batch of 8 x 512 seeded tokens, on a ("data", "stage") (1, 4)
-    mesh whose entries are all the card, 4 microbatches, against the
-    unstaged ``Model.loss`` on the same card and weights: the loss within
-    2e-4 (``tests/test_distributed.py``'s rule); every gradient leaf,
-    against the unstaged step's in float64, within ``card_grad_rtol`` of
-    its largest, a rule the unstaged float32 step's own error sets (at
-    this width float32 parts from float64 by about 1e-2 of a leaf's
-    largest on any device, and pipelining only reorders float32 sums);
-    the bytes hopped between stages equal to the formula. Each step's ms
-    (forward and backward, CUDA events) and peak memory beside the peak
-    the dry run's counter reckons from a ``meta`` trace of the same
-    step, and the schedule's bubble."""
+    0, a batch of 8 x 512 seeded tokens, 4 microbatches, on a ("data",
+    "stage") (1, 4) mesh whose entries are all the card (the model built
+    with ``mesh=None``: the embedding and head on the card), and on a
+    ("data", "stage", "model") (1, 2, 4) mesh of the card with the model
+    built on it (the embedding and head sharded over 4 model ranks, the
+    blocks over 2 stages), each against the unstaged ``Model.loss`` on
+    the same card and weights: the loss within 2e-4
+    (``tests/test_distributed.py``'s rule); every gradient leaf, against
+    the unstaged step's in float64, within ``card_grad_rtol`` of its
+    largest, a rule the unstaged float32 step's own error sets (at this
+    width float32 parts from float64 by about 1e-2 of a leaf's largest on
+    any device, and pipelining only reorders float32 sums); the bytes of
+    a step (forward and backward) equal to the formula (``gpipe_bytes``).
+    Each step's ms (forward and backward, CUDA events) and peak memory
+    beside the peak the dry run's counter reckons from a ``meta`` trace
+    of the (1, 4) and unstaged steps, and the schedule's bubble."""
     import numpy as np
     import torch
     from _model_cases import card_grad_rtol, grad_error
@@ -2506,27 +2617,32 @@ def gpipe(dev, gpu):
     tokens = {k: rng.integers(0, cfg.vocab_size, (PP_B, PP_S))
               for k in ("tokens", "labels")}
 
-    def step(model, device, staged):
-        """The step (loss and its gradients) on ``device``, and its mesh."""
+    def pp_mesh(device, shape, names):
+        return DeviceMesh(np.full(shape, torch.device(device), dtype=object),
+                          names)
+
+    def step(model, device, mesh=None):
+        """The step (loss and its gradients) on ``device``: pipelined over
+        ``mesh``, or unstaged."""
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in tokens.items()}
-        mesh = DeviceMesh(np.full((1, PP_STAGES), torch.device(device),
-                                  dtype=object), ("data", STAGE_AXIS))
-        loss_fn = (pp_loss_fn(model, mesh, PP_MICRO) if staged
+        loss_fn = (pp_loss_fn(model, mesh, PP_MICRO) if mesh is not None
                    else model.loss)
         weights = list(model.parameters())
 
         def run():
             loss, _ = loss_fn(batch)
             return loss.detach(), torch.autograd.grad(loss, weights)
-        return run, mesh
+        return run
 
     # the peak the dry run's counter reckons for each step: its
     # allocations at most, beside the parameters
     reckoned = {}
     meta = Model(cfg, device="meta", trainable=True)
     for staged in (True, False):
-        run, _ = step(meta, "meta", staged)
+        run = step(meta, "meta", pp_mesh("meta", (1, PP_STAGES),
+                                         ("data", STAGE_AXIS))
+                   if staged else None)
         rec = dr.trace(StepBundle(run, (), (), None))
         reckoned[staged] = rec["temp_bytes"] + sum(
             w.numel() * 4 for w in meta.parameters())
@@ -2534,67 +2650,105 @@ def gpipe(dev, gpu):
 
     model = Model(cfg, seed=0, device=dev, trainable=True)
     names = [n for n, _ in model.named_parameters()]
+    K2, M2 = PP_MODEL
+    meshes = {"(1, 4)": pp_mesh(dev, (1, PP_STAGES), ("data", STAGE_AXIS)),
+              "(1, 2, 4)": pp_mesh(dev, (1, K2, M2),
+                                   ("data", STAGE_AXIS, "model")),
+              "unstaged": None}
     out = {}
-    for staged in (True, False):
-        run, mesh = step(model, dev, staged)
+    for name, mesh in meshes.items():
+        m = model if name != "(1, 2, 4)" else Model(
+            cfg, device=dev, trainable=True, params=model.params(),
+            mesh=mesh)
+        run = step(m, dev, mesh)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         loss, grads = run()
         peak = torch.cuda.max_memory_allocated(dev)
-        hops = dict(mesh.hops)
+        hops = dict(mesh.hops) if mesh is not None else {}
         ms = time_ms(run, reps=3)
-        out[staged] = (loss, grads, ms, peak, hops)
+        out[name] = (loss, [g.double() for g in grads], ms, peak, hops)
+        del m, run, grads
     c64 = cfg.replace(dtype="float64", param_dtype="float64")
-    run64, _ = step(Model(c64, device=dev, trainable=True,
-                          params=model.params()), dev, False)
+    run64 = step(Model(c64, device=dev, trainable=True,
+                       params=model.params()), dev)
     del model
     torch.cuda.empty_cache()
     _, g64 = run64()
     del run64
-    loss, grads, ms, peak, hops = out[True]
-    base, base_grads, base_ms, base_peak, _ = out[False]
-    K, act = PP_STAGES, PP_B * PP_S * cfg.d_model * 4
-    formula = {"collective-permute": (K - 1) * act, "all-reduce": K * act}
-    e_pp = {n: grad_error(g.double(), w) for n, g, w in
-            zip(names, grads, g64)}
-    e_base = {n: grad_error(g.double(), w) for n, g, w in
-              zip(names, base_grads, g64)}
+    base, base_grads, base_ms, base_peak, _ = out["unstaged"]
+    e_base = {n: grad_error(g, w) for n, g, w in zip(names, base_grads, g64)}
     rtol = {n: card_grad_rtol(e_base[n], cfg.num_layers) for n in names}
-    worst = max(names, key=lambda n: e_pp[n] / rtol[n])
-    err = abs(float(loss) - float(base))
-    bubble = (K - 1) / (PP_MICRO + K - 1)
     gib = 2 ** 30
-    log(f"[gpipe {TRAIN_ARCH}] {cfg.num_layers} layers at d_model "
-        f"{cfg.d_model}, float32, remat none, batch {PP_B} x {PP_S}, "
-        f"{K} stages on a (1, {K}) (data, stage) mesh of {dev}, "
-        f"{PP_MICRO} microbatches: loss {float(loss):.6f} against the "
-        f"unstaged {float(base):.6f}, |diff| {err:.3g} (rule 2e-4); "
-        f"gradients against the unstaged step in float64: the worst leaf "
-        f"against its rule {worst} {e_pp[worst]:.3g} of its largest "
-        f"(card_grad_rtol {rtol[worst]:.3g}; the unstaged float32 step's "
-        f"own {e_base[worst]:.3g}), the largest errors pipelined "
-        f"{max(e_pp.values()):.3g}, unstaged {max(e_base.values()):.3g} "
-        f"({gpu})")
-    log(f"[gpipe {TRAIN_ARCH}] a step (forward and backward, CUDA events, "
-        f"3 warm) {ms:.2f} ms pipelined, {base_ms:.2f} ms unstaged; peak "
-        f"memory {peak / gib:.3f} GiB pipelined, {base_peak / gib:.3f} GiB "
-        f"unstaged, reckoned from a meta trace {reckoned[True] / gib:.3f} "
-        f"and {reckoned[False] / gib:.3f} GiB; bubble (K - 1) / (n_micro + "
-        f"K - 1) = {bubble:.4f} of each stage's ticks (on one card the "
-        f"stages run one after another, so no tick overlaps another); "
-        f"bytes between stages {hops} against the formula {formula} "
-        f"({gpu})")
-    if err > 2e-4:
-        fail(f"[gpipe {TRAIN_ARCH}] pipelined loss {float(loss)} against "
-             f"the unstaged {float(base)}")
-    if e_pp[worst] > rtol[worst]:
-        fail(f"[gpipe {TRAIN_ARCH}] gradient {worst} off float64 by "
-             f"{e_pp[worst]} of its largest, past {rtol[worst]}")
-    if hops != formula:
-        fail(f"[gpipe {TRAIN_ARCH}] hop bytes {hops}, formula {formula}")
-    del out, grads, base_grads, g64
+    for name, shape in (("(1, 4)", (1, PP_STAGES, 1)),
+                        ("(1, 2, 4)", (1, K2, M2))):
+        loss, grads, ms, peak, hops = out[name]
+        formula = gpipe_bytes(cfg, *shape)
+        K = shape[1]
+        e_pp = {n: grad_error(g, w) for n, g, w in zip(names, grads, g64)}
+        worst = max(names, key=lambda n: e_pp[n] / rtol[n])
+        err = abs(float(loss) - float(base))
+        bubble = (K - 1) / (PP_MICRO + K - 1)
+        log(f"[gpipe {TRAIN_ARCH} {name}] {cfg.num_layers} layers at "
+            f"d_model {cfg.d_model}, float32, remat none, batch {PP_B} x "
+            f"{PP_S}, {K} stages on a {name} mesh of {dev}"
+            + (", the embedding and head sharded over its model axis"
+               if shape[2] > 1 else "")
+            + f", {PP_MICRO} microbatches: loss {float(loss):.6f} against "
+            f"the unstaged {float(base):.6f}, |diff| {err:.3g} (rule 2e-4); "
+            f"gradients against the unstaged step in float64: the worst "
+            f"leaf against its rule {worst} {e_pp[worst]:.3g} of its "
+            f"largest (card_grad_rtol {rtol[worst]:.3g}; the unstaged "
+            f"float32 step's own {e_base[worst]:.3g}), the largest errors "
+            f"pipelined {max(e_pp.values()):.3g}, unstaged "
+            f"{max(e_base.values()):.3g} ({gpu})")
+        log(f"[gpipe {TRAIN_ARCH} {name}] a step (forward and backward, "
+            f"CUDA events, 3 warm) {ms:.2f} ms pipelined, {base_ms:.2f} ms "
+            f"unstaged; peak memory {peak / gib:.3f} GiB pipelined, "
+            f"{base_peak / gib:.3f} GiB unstaged"
+            + (f", reckoned from a meta trace {reckoned[True] / gib:.3f} "
+               f"and {reckoned[False] / gib:.3f} GiB" if shape[2] == 1
+               else "")
+            + f"; bubble (K - 1) / (n_micro + K - 1) = {bubble:.4f} of each "
+            f"stage's ticks (on one card the stages run one after another, "
+            f"so no tick overlaps another); bytes of the step {hops} "
+            f"against the formula {formula} ({gpu})")
+        if err > 2e-4:
+            fail(f"[gpipe {TRAIN_ARCH} {name}] pipelined loss {float(loss)} "
+                 f"against the unstaged {float(base)}")
+        if e_pp[worst] > rtol[worst]:
+            fail(f"[gpipe {TRAIN_ARCH} {name}] gradient {worst} off float64 "
+                 f"by {e_pp[worst]} of its largest, past {rtol[worst]}")
+        if hops != formula:
+            fail(f"[gpipe {TRAIN_ARCH} {name}] hop bytes {hops}, formula "
+                 f"{formula}")
+    del out, base_grads, g64
     torch.cuda.empty_cache()
     log(f"[gpipe] took {time.monotonic() - t0:.1f} s")
+
+
+def gpipe_bytes(cfg, D, K, M):
+    """The bytes of each collective kind in a pipelined step (loss and
+    gradients, remat "none") of a batch PP_B x PP_S in float32 on a (D, K,
+    M) ("data", "stage", "model") mesh with D = 1, every participant's
+    output (``tests/test_torch_pipeline.py:model_axis_bytes``). ``act`` =
+    B S d x 4. Forward: (K - 1) hops of every microbatch, and the
+    ``psum``'s buffer on each of the K M entries (an all-reduce of K M
+    act); with the model on a model axis of M > 1, the embedding's
+    all-reduce over its vocabulary shards (M act) and the logits'
+    all-gather (M B S V x 4). Backward: each transpose, its inputs' bytes:
+    the hops and both all-reduces again, the all-gather as a
+    reduce-scatter (B S V x 4). One data shard: nothing moves between
+    data rows and no gradient is reduced over data."""
+    act = PP_B * PP_S * cfg.d_model * 4
+    out = {"collective-permute": 2 * (K - 1) * act,
+           "all-reduce": 2 * K * M * act}
+    if M > 1:
+        logits = PP_B * PP_S * cfg.vocab_size * 4
+        out["all-reduce"] += 2 * M * act
+        out["all-gather"] = M * logits
+        out["reduce-scatter"] = logits
+    return out
 
 
 # --- phase 11: the attention family sharded over a (data, model) mesh -----
@@ -2603,10 +2757,14 @@ SHARD_ARCH = "olmoe-1b-7b"
 SHARD_BATCH = (4, 64)             # 11b: card against CPU, 2 layers
 
 
-def shard_mesh(device):
-    """Phase 11's (data, model) (2, 4) mesh of 8 entries of ``device``."""
+def shard_mesh(device, mixed: bool = False):
+    """Phase 11's (data, model) (2, 4) mesh of 8 entries of ``device``;
+    ``mixed`` (phase 13): the entries with an odd model index on the CPU,
+    so that every collective over ``model`` crosses the two devices."""
     from repro_torch.launch.mesh import make_mesh_for
-    return make_mesh_for([device] * 8, model_parallel=4)
+    return make_mesh_for([("cpu" if mixed and j % 2 else device)
+                          for _ in range(2) for j in range(4)],
+                         model_parallel=4)
 
 
 class RouteLog:
@@ -2670,11 +2828,12 @@ def shard_side(cfg, params, device, mesh, batch, routes):
             [e.cpu() for e, _ in seen], size)
 
 
-def sharded_models(dev, gpu, one_ms):
+def sharded_models(dev, gpu, one_ms, dry_step):
     """Phase 11. 11a: ``olmoe-1b-7b`` at published width and depth,
     seed-0 weights, served sharded over a (2, 4) mesh of the one card
-    through ``serve(mesh=...)`` at phase 8's shape (batch 4, prompt 16,
-    32 greedy tokens) beside the one-device serve from the same weights
+    through ``serve(mesh=...)`` at batch 4, prompt 16, 16 greedy tokens
+    (half of phase 8's, for time) beside the one-device serve from the
+    same weights
     (the sharded model's blocks are views of them), each MoE call's
     routing recorded: no assignment dropped on either side (each data
     shard routes 2 tokens x top 8 into a capacity of 4); the data shards'
@@ -2703,7 +2862,7 @@ def sharded_models(dev, gpu, one_ms):
     from repro_torch.models.transformer import Model, init_params
     from repro_torch.tree import map_tree
 
-    B, P, G = 4, 16, 32
+    B, P, G = SHARD_STEP
     arch = SHARD_ARCH
     cfg = get_config(arch)
     L, E, k = cfg.num_layers, cfg.num_experts, cfg.top_k
@@ -2809,12 +2968,8 @@ def sharded_models(dev, gpu, one_ms):
         nxt = {"tokens": seq[:, P:P + 1]}
         mesh.hops.clear()
         sharded.decode_step(caches["(2, 4)"], nxt, P)
-        d, bf = cfg.d_model, 2
-        cap = moe.capacity(B // D, cfg)
-        act = M * B * d * bf
-        want = {"all-reduce": act * (1 + L) + L * 2 * D * M * 4,
-                "all-to-all": L * 2 * D * M * E * cap * d * bf,
-                "all-gather": M * B * cfg.vocab_size * bf}
+        d, cap = cfg.d_model, moe.capacity(B // D, cfg)
+        want = moe_step_bytes(cfg, B, D, M, 2, 4)
         got = dict(mesh.hops)
         log(f"[shard {arch}] one decode step's collective bytes (every "
             f"participant's output): {got}; the formula {want}: all-reduce "
@@ -2823,10 +2978,11 @@ def sharded_models(dev, gpu, one_ms):
             f"load-balance loss's pmean over data and model), all-to-all L "
             f"x 2 directions x D M entries x (E / M, M cap, d) = {L} x 2 x "
             f"{D * M} x ({E // M} x {M * cap} x {d} x 2 B), all-gather M B "
-            f"V x 2 B (the logits' vocabulary shards) ({gpu})")
-        if got != want:
+            f"V x 2 B (the logits' vocabulary shards); phase 10's one-entry "
+            f"meta trace of this step {dry_step} ({gpu})")
+        if got != want or got != dry_step:
             fail(f"[shard {arch}] collective bytes {got}, the formula "
-                 f"{want}")
+                 f"{want}, the one-entry trace {dry_step}")
         sharded_checks(dev, gpu, on_card, checks, routes)
     torch.set_num_threads(threads)
 
@@ -3236,7 +3392,7 @@ def sharded_families(dev, gpu, one_ms, one_peak):
     (2, 4) mesh of ``cuda:0`` (``shard_mesh``). 12a: ``FAMILY_ARCH``
     (``deepseek-v2-lite-16b``) at published width and depth, seed-0
     bfloat16 weights, served through ``serve(mesh=...)`` (batch 4, prompt
-    16, 16 greedy tokens: half of phase 8's, for time), each MoE call's
+    16, 8 greedy tokens: a quarter of phase 8's, for time), each MoE call's
     routing recorded: no assignment dropped (each data shard routes 2
     tokens x top 6 over 64 experts into 4 slots an expert), the peak
     memory beside phase 8's one-device serve (``one_peak``; twice it
@@ -3261,7 +3417,7 @@ def sharded_families(dev, gpu, one_ms, one_peak):
     from repro_torch.models.transformer import Model, init_params
     from repro_torch.tree import map_tree
 
-    B, P, G, GEN = 4, 16, 16, 4
+    B, P, G, GEN = 4, 16, 8, 4
     mesh = shard_mesh("cuda:0")
     D, M = mesh.shape["data"], mesh.shape["model"]
 
@@ -3402,6 +3558,120 @@ def sharded_families(dev, gpu, one_ms, one_peak):
                  f"{want}")
         del one, two, caches, tree
         torch.cuda.empty_cache()
+
+
+# --- phase 13: a mesh whose entries sit on two devices -------------------
+
+MIXED_ARCH = "olmoe-1b-7b"
+MIXED_LAYERS = 2
+MIXED_BATCH = (4, 16)             # the loss's batch; decode: 2 fed, 2 greedy
+MIXED_RTOL = 1e-9                 # float64: of each compared value's largest
+
+
+def mixed_mesh(dev, gpu):
+    """Phase 13: ``MIXED_ARCH`` at published width cut to its first
+    ``MIXED_LAYERS`` layers of its seed-0 draw, in float64, sharded over a
+    (2, 4) mesh whose entries with an odd model index sit on the CPU and
+    the rest on ``dev`` (``shard_mesh(mixed=True)``: every collective over
+    ``model`` crosses the two devices, every CPU entry's blocks are
+    copies, its cache parts copied there and written back), held against
+    the same model on the (2, 4) mesh of ``dev`` alone (the program phase
+    11 holds against one device), each value within ``MIXED_RTOL`` of its
+    largest: a batch of ``MIXED_BATCH`` seeded tokens' logits and loss,
+    every gradient leaf of the loss; then 4 decode steps, 2 over the
+    batch's first tokens and 2 greedy: the logits, every cache leaf, each
+    MoE call's expert sets and the greedy tokens equal. One decode step's
+    collective bytes equal ``moe_step_bytes`` at this shape (float64
+    activations and load-balance loss). Peak memory on the card against
+    the card's mesh's, and each side's seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.tree import flatten, leaves
+
+    t0 = time.monotonic()
+    cfg = get_config(MIXED_ARCH).replace(num_layers=MIXED_LAYERS,
+                                          dtype="float64",
+                                          param_dtype="float64")
+    tree = init_params(cfg, seed=0, device=dev)
+    B, S = MIXED_BATCH
+    rng = np.random.default_rng(13)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                device=dev) for k in ("tokens", "labels")}
+    meshes = {"cuda:0": shard_mesh(dev), "mixed": shard_mesh(dev, True)}
+    got, peaks, secs = {}, {}, {}
+    with RouteLog(moe) as routes:
+        for name, mesh in meshes.items():
+            t1 = time.monotonic()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            model = Model(cfg, device=dev, params=tree, trainable=True,
+                          mesh=mesh)
+            loss, _ = model.loss(batch)
+            grads = torch.autograd.grad(loss, leaves(model.params()))
+            with torch.no_grad():
+                logits, _ = model(batch)
+            del model
+            serving = Model(cfg, device=dev, params=tree, mesh=mesh)
+            with routes.record() as seen:
+                dec, toks, cache = family_run(serving, batch["tokens"][:, :2],
+                                              2)
+            mesh.hops.clear()
+            serving.decode_step(serving.init_cache(B, 8),
+                                {"tokens": batch["tokens"][:, :1]}, 0)
+            hops = dict(mesh.hops)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated(dev)
+            secs[name] = time.monotonic() - t1
+            # held on the host, so that the next side's peak is its own
+            got[name] = dict(loss=loss.detach().cpu(), logits=logits.cpu(),
+                             grads=[g.cpu() for g in grads],
+                             decode=dec.cpu(), tokens=toks.cpu(),
+                             cache={k: v.cpu() for k, v in flatten(cache)},
+                             sets=[e.sort(-1)[0].cpu() for e, _ in seen],
+                             hops=hops)
+            del serving, cache, grads, logits, dec
+    a, b = got["mixed"], got["cuda:0"]
+    errs = {"loss": rel_err(a["loss"], b["loss"]),
+            "logits": rel_err(a["logits"], b["logits"]),
+            "decode logits": rel_err(a["decode"], b["decode"])}
+    grad_errs = [rel_err(x, y) for x, y in zip(a["grads"], b["grads"])]
+    cache_errs = {k: rel_err(a["cache"][k], b["cache"][k])
+                  for k in b["cache"]}
+    errs["worst gradient leaf"] = max(grad_errs)
+    errs["worst cache leaf"] = max(cache_errs.values())
+    same_sets = len(a["sets"]) == len(b["sets"]) and all(
+        torch.equal(x, y) for x, y in zip(a["sets"], b["sets"]))
+    same_toks = bool(torch.equal(a["tokens"], b["tokens"]))
+    want = moe_step_bytes(cfg, B, 2, 4, 8, 8)
+    gib = 2 ** 30
+    line = (f"[mixed {MIXED_ARCH}] {MIXED_LAYERS} layers at published width "
+            f"in float64 on a (2, 4) mesh whose odd model ranks sit on the "
+            f"CPU, against the (2, 4) mesh of {dev}: loss, logits of a "
+            f"{B} x {S} batch, {len(grad_errs)} gradient leaves, 4 decode "
+            f"steps (2 fed, 2 greedy), relative to each value's largest: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (rule {MIXED_RTOL}); expert sets equal at all "
+            f"{len(b['sets'])} MoE calls {same_sets}; greedy tokens equal "
+            f"{same_toks}; one decode step's collective bytes {a['hops']} "
+            f"(the card's mesh {b['hops']}), the formula {want}; peak "
+            f"memory on the card {peaks['mixed'] / gib:.3f} GiB "
+            f"({peaks['mixed']} B) against the card's mesh's "
+            f"{peaks['cuda:0'] / gib:.3f} GiB ({peaks['cuda:0']} B); "
+            f"{secs['mixed']:.1f} s mixed, {secs['cuda:0']:.1f} s on the "
+            f"card ({gpu})")
+    log(line)
+    if max(errs.values()) > MIXED_RTOL or not same_sets or not same_toks:
+        fail(f"{line}: the mixed mesh parts from the card's")
+    if a["hops"] != want or b["hops"] != want:
+        fail(f"[mixed {MIXED_ARCH}] collective bytes {a['hops']} and "
+             f"{b['hops']}, the formula {want}")
+    del got, tree
+    torch.cuda.empty_cache()
+    log(f"[mixed] took {time.monotonic() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -3983,17 +4253,21 @@ def main(argv=None) -> int:
     lap("9")
 
     # 10. the dry run, its roofline against the card, GPipe ------------------
-    dryrun_models(dev, gpu, step_ms, decode_ms[TRAIN_ARCH])
+    dry_step = dryrun_models(dev, gpu, step_ms, decode_ms[TRAIN_ARCH])
     lap("10")
 
     # 11. the attention family sharded over a (data, model) mesh -------------
-    sharded_models(dev, gpu, decode_ms[SHARD_ARCH])
+    sharded_models(dev, gpu, decode_ms[SHARD_ARCH], dry_step)
     lap("11")
 
     # 12. MLA, the VLM's groups, RWKV6 and Mamba2 sharded -------------------
     sharded_families(dev, gpu, decode_ms[FAMILY_ARCH],
                      serve_peaks[FAMILY_ARCH])
     lap("12")
+
+    # 13. a mesh whose entries sit on the card and on the CPU ---------------
+    mixed_mesh(dev, gpu)
+    lap("13")
     log(f"[time] the whole run: {time.monotonic() - laps[0]:.1f} s")
 
     log(json.dumps({"kernels": entries}))

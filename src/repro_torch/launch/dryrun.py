@@ -4,13 +4,18 @@ and extract the costs and memory of the roofline tables.
 
 The reference lowers and compiles each step against placeholder devices
 (``--xla_force_host_platform_device_count``, set at its import) and reads
-XLA's ``cost_analysis`` and ``memory_analysis``. The port's counterpart is
-one trace of the step on the ``meta`` device: every tensor has a shape
-and a dtype and no storage, so nothing is allocated on any device and a
-cell of any size traces on a laptop. The mesh is the production mesh of
-``"meta"`` entries (``launch/mesh.py:make_production_mesh``); nothing is
-set in the environment, at import or after. The trace runs under
-``_Counter``, one dispatch mode that counts
+XLA's ``cost_analysis`` and ``memory_analysis`` of one partition, times
+the chips. The port's counterpart is one trace of the step on the
+``meta`` device: every tensor has a shape and a dtype and no storage, so
+nothing is allocated on any device and a cell of any size traces on a
+laptop. The mesh is the production mesh of ``"meta"`` entries
+(``launch/mesh.py:make_production_mesh``); nothing is set in the
+environment, at import or after. The model runs sharded over it, as the
+reference's does (``models/transformer.py:_sharded``), and since every
+entry of an all-``meta`` mesh computes the same shapes, it runs entry
+(0, ..., 0) alone for all of them (``models/common.py:Entries``): the
+reference's own method of one partition's counts times the chips. The
+trace runs under ``_Counter``, one dispatch mode that counts
 
 - ``hlo_flops``: the matrix products' and convolutions' FLOPs by
   ``torch.utils.flop_counter``'s formulas, the count
@@ -23,27 +28,42 @@ set in the environment, at import or after. The trace runs under
   its result;
 - the storages the step allocates while they live, for the peak.
 
-Each count is global: the trace runs the unsharded program, where the
-reference multiplies a partition's count by the chips. The step is the
-port's (``launch/steps.py``): the train step is ``Model.loss``'s value and
-gradient under the config's remat, then ``adamw.update``, with the
-model's parameters float32; the prefill and serve steps run a serving
-model, its matrices in ``cfg.dtype``. Collective bytes are the port's own
-count (``roofline.collective_bytes``), 0 for every cell: the dry run
-traces the unsharded program (a mesh of ``meta`` entries gives the model
-its specs only: ``models/transformer.py:runs_sharded``), and counting
-the sharded program's collectives is ROADMAP item 33. ``memory`` keeps
-the reference's keys:
+Each op is weighed by the mesh entries it stands for
+(``launch/mesh.py:standing_for``): the one entry's work (forward, and in
+the backward each autograd node by the weight in force where the forward
+made it, read from its sequence number) by the entries it runs for, the
+chips; work the port does once on the model's device (the batch split,
+the gathered logits' concatenation and loss, AdamW, the sums that gather
+a shared leaf's gradient) once; a collective's own copies and sums not
+at all, since its traffic is its collective bytes. So each count is
+global, and equals a run of the same sharded program with every entry
+run (tested on CPU meshes at SMOKE size). ``hlo_flops`` and ``hlo_bytes``
+count replicated compute (norms, the router, MLA's latent) on every
+entry, as XLA's per-partition counts do, and so exceed the unsharded
+program's.
+
+The step is the port's (``launch/steps.py``): the train step is
+``Model.loss``'s value and gradient under the config's remat, then
+``adamw.update``, with the model's parameters float32; the prefill and
+serve steps run a serving model, its matrices in ``cfg.dtype``.
+Collective bytes are the bytes the sharded program moves between mesh
+entries by kind (``roofline.collective_bytes``, from ``DeviceMesh.hops``:
+every participant's output bytes, the reference's convention), the
+backward's included: each collective's transpose, the rematerialized
+forward's collectives again, and the gradients' all-reduce over the data
+axes. ``memory`` keeps the reference's keys:
 
 - ``argument_bytes``: per device, each argument leaf's bytes (the
   parameters, the optimizer state, the batch, the cache) divided by the
   sizes of the mesh axes its spec shards it over;
 - ``output_bytes``: the step's outputs that are not its arguments (the
   train and serve steps update their arguments in place), unsharded;
-- ``temp_bytes``: the most bytes the step's own allocations held at once,
-  unsharded;
-- ``peak_bytes``: the unsharded arguments' bytes plus ``temp_bytes``,
-  what one device running the unsharded step would hold.
+- ``temp_bytes``: the most bytes the step's own allocations held at once
+  in the trace: the one entry's part of the sharded program, beside what
+  the port holds once on the model's device (the gathered logits, the
+  gradients of the whole leaves, AdamW's temporaries). It is neither one
+  device's nor the unsharded program's;
+- ``peak_bytes``: the unsharded arguments' bytes plus ``temp_bytes``.
 
 ``lower_s`` is the trace's seconds; ``compile_s`` is kept, 0 in
 ``run_cell`` (nothing compiles), so readers of the reference's records
@@ -58,6 +78,7 @@ Usage (no card needed):
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import json
 import time
@@ -73,10 +94,11 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch import roofline as rl
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import shapes as shp
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import listen, make_production_mesh, stands_for
 from repro_torch.launch.steps import (StepBundle, abstract_opt_state,
                                       make_prefill_step, make_serve_step,
                                       make_train_step, sharding_of)
+from repro_torch.models.common import block_bytes
 from repro_torch.models.transformer import Model, param_specs
 from repro_torch.optim import adamw
 from repro_torch.tree import leaves, map_tree
@@ -144,6 +166,12 @@ class _Counter(TorchDispatchMode):
       those live, now and at most. Storages alive when it was made
       (``known``: the arguments) are not the step's own and not tracked.
 
+    FLOPs and bytes are weighed by the mesh entries each op stands for:
+    the innermost ``standing_for``'s weight where one is in force, else,
+    in the backward, the weight in force where the forward made the
+    autograd node that runs (``note`` records each change against
+    autograd's sequence numbers), else 1.
+
     On ``meta`` tensors it also memoizes: an op that is no view and does
     not mutate, called again on arguments of the same shapes, strides,
     dtypes and other values, gets fresh empty results of the shapes,
@@ -163,6 +191,24 @@ class _Counter(TorchDispatchMode):
         self._refs = {}              # storage id -> its weak reference
         self._memo = {}
         self._ops = {}               # op -> (view, mutates, empty, formula)
+        self._seqs, self._weights = [], []
+
+    def note(self, seq: int, weight) -> None:
+        """From autograd sequence number ``seq`` on, nodes stand for
+        ``weight`` entries (None: outside any ``standing_for``)."""
+        self._seqs.append(seq)
+        self._weights.append(weight)
+
+    def weight(self) -> int:
+        w = stands_for()
+        if w is not None:
+            return w
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return 1
+        k = bisect.bisect_right(self._seqs, node._sequence_nr()) - 1
+        w = self._weights[k] if k >= 0 else None
+        return 1 if w is None else w
 
     def _op(self, func):
         op = self._ops.get(func)
@@ -227,8 +273,9 @@ class _Counter(TorchDispatchMode):
             out = func(*args, **kwargs)
         else:
             out, view = self._call(func, flat, spec, args, kwargs)
-        if formula is not None:
-            self.flops += formula(*args, **kwargs, out_val=out)
+        w = self.weight()
+        if formula is not None and w:
+            self.flops += w * formula(*args, **kwargs, out_val=out)
         if view or empty:
             return out
         n = 0
@@ -248,7 +295,7 @@ class _Counter(TorchDispatchMode):
             self.live += size
             if self.live > self.peak:
                 self.peak = self.live
-        self.bytes += n
+        self.bytes += w * n
         return out
 
 
@@ -265,10 +312,15 @@ def trace(bundle: StepBundle, modes=(), mesh=None) -> dict:
     before = rl.collective_bytes(mesh)
     t0 = time.monotonic()
     counter = _Counter(args)
-    with contextlib.ExitStack() as stack:
-        for mode in (counter, *modes):
-            stack.enter_context(mode)
-        out = bundle.fn(*bundle.args)
+    counter.note(torch._C._autograd._get_sequence_nr(), stands_for())
+    listen(counter.note)
+    try:
+        with contextlib.ExitStack() as stack:
+            for mode in (counter, *modes):
+                stack.enter_context(mode)
+            out = bundle.fn(*bundle.args)
+    finally:
+        listen(None)
     seconds = time.monotonic() - t0
     after = rl.collective_bytes(mesh)
     mine = {_storage(t) for t in args}
@@ -289,15 +341,8 @@ def argument_bytes(bundle: StepBundle, mesh) -> Dict[str, int]:
     per, whole = 0, 0
     for tree, specs in zip(bundle.args, bundle.in_shardings):
         for t, spec in zip(leaves(tree), _specs(tree, specs)):
-            n = t.numel() * t.element_size()
-            ways = 1
-            for entry in spec:
-                for axis in (entry if isinstance(entry, tuple)
-                             else (entry,)):
-                    if axis is not None:
-                        ways *= mesh.shape[axis]
-            whole += n
-            per += n // ways
+            whole += t.numel() * t.element_size()
+            per += block_bytes(t, spec, mesh)
     return {"argument_bytes": per, "unsharded": whole}
 
 
@@ -321,8 +366,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, opt_overrides=None,
         cfg = cfg.replace(**opt_overrides)
     shape = shape or shp.SHAPES[shape_name]
     train = shape.kind == "train"
-    # a mesh of meta entries gives the specs only: the unsharded program
-    # is traced (models/transformer.py:runs_sharded)
+    # a mesh of meta entries runs the sharded program on meta, one entry
+    # for all (models/common.py:Entries)
     model = Model(cfg, device=device, trainable=train, mesh=mesh)
     params = model.params()
     pspecs = param_specs(cfg, mesh)

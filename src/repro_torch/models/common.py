@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import standing_for
 from repro_torch.tree import flatten, leaves, map_tree
 
 # ---------------------------------------------------------------------------
@@ -223,6 +224,38 @@ def shard(x: torch.Tensor, spec, mesh, coords: Dict[str, int]):
     return x[tuple(index)] if any(s != slice(None) for s in index) else x
 
 
+def block_bytes(x: torch.Tensor, spec, mesh) -> int:
+    """The bytes of one entry's block of ``x`` under ``spec``: ``x``'s
+    bytes over the sizes of the mesh axes the spec names."""
+    ways = 1
+    for entry in spec:
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is not None:
+                ways *= mesh.shape[axis]
+    return x.numel() * x.element_size() // ways
+
+
+class _Represent(torch.autograd.Function):
+    """The leaf that an abstract mesh's one entry reads for all ``n``
+    (``Entries.part``): the leaf itself forward; backward, the ``n - 1``
+    sums with which autograd gathers the ``n`` entries' gradients of a
+    shared leaf, done once for all (``standing_for(1)``), so the dry run
+    counts them as a run of every entry does."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with standing_for(1):
+            acc = g
+            for _ in range(ctx.n - 1):
+                acc = acc + g
+        return acc, None
+
+
 class Entries:
     """A (data, model) mesh as a model runs over it: D rows, one a data
     shard (the data axes "pod" and "data", pod the major), by M columns,
@@ -232,7 +265,16 @@ class Entries:
     not run). A grid is a list of D lists of M values, one an entry.
     ``part`` cuts a leaf by its spec; the ``model_*`` collectives run each
     row's entries through the mesh's collective over ``model``, and
-    ``pmean`` over the named axes."""
+    ``pmean`` over the named axes.
+
+    On an abstract mesh (every entry ``meta``: the dry run's) every entry
+    computes the same shapes, so ``grid`` runs entry (0, 0) alone, its ops
+    standing for all D M entries (``launch/mesh.py:standing_for``), and
+    gives its value to every cell; each ``model_*`` collective runs row 0
+    for the D rows; ``part`` and ``head_rows`` keep the tape's sums those
+    of a run of every entry. Work that loops over the entries itself (the
+    ``pmean`` groups, a cache write that only the rank holding the
+    position does) runs for each, so it is counted as it runs."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -240,6 +282,7 @@ class Entries:
         sizes = [axis_size(mesh, a) for a in self.dp]
         self.D = math.prod(sizes)
         self.M = axis_size(mesh, TP_AXIS)
+        self.one = bool(getattr(mesh, "abstract", False))
         self.coords, self.devices = [], []
         for i in range(self.D):
             at, rest = {}, i
@@ -252,34 +295,66 @@ class Entries:
                 if TP_AXIS in c:
                     c[TP_AXIS] = j
                 row_c.append(c)
-                row_d.append(mesh.devices[tuple(c[a] for a in
-                                                mesh.axis_names)])
+                row_d.append(resolve_device(mesh.devices[tuple(
+                    c[a] for a in mesh.axis_names)]))
             self.coords.append(row_c)
             self.devices.append(row_d)
 
     def grid(self, fn):
-        """[[fn(i, j) for each model rank j] for each data row i]."""
+        """[[fn(i, j) for each model rank j] for each data row i]; on an
+        abstract mesh fn(0, 0) in every cell."""
+        if self.one:
+            with standing_for(self.D * self.M):
+                r = fn(0, 0)
+            return [[r] * self.M for _ in range(self.D)]
         return [[fn(i, j) for j in range(self.M)] for i in range(self.D)]
 
     def part(self, x: torch.Tensor, spec, i: int, j: int) -> torch.Tensor:
         """Entry (i, j)'s block of ``x`` by ``spec`` (``shard``) on its
         device: a view of ``x`` where ``x`` is on that device already (no
-        copy: a replicated leaf is ``x`` itself), else a copy there."""
+        copy: a replicated leaf is ``x`` itself), else a copy there. On an
+        abstract mesh a leaf that takes a gradient is read through
+        ``_Represent``."""
+        if self.one and x.requires_grad:
+            x = _Represent.apply(x, self.D * self.M)
         return shard(x, spec, self.mesh, self.coords[i][j]).to(
             self.devices[i][j])
 
+    def head_rows(self, g, device):
+        """Each data row's value at model rank 0, on ``device``, for work
+        done once over every row (the logits' concatenation). On an
+        abstract mesh row 0's value, and for the other rows its copies cut
+        from the tape: their work is row 0's, already weighed."""
+        if self.one:
+            return [g[0][0]] + [g[0][0].detach()] * (self.D - 1)
+        return [row[0].to(device) for row in g]
+
+    def _rows(self, g, call):
+        """``call(row, times)`` on each row of ``g``: the mesh's collective
+        over ``model`` (nothing where the mesh has no model axis); on an
+        abstract mesh row 0's, counted for the D rows."""
+        if self.M == 1:
+            return g
+        if self.one:
+            outs = call(g[0], self.D)
+            return [list(outs) for _ in range(self.D)]
+        return [call(row, 1) for row in g]
+
     def model_all_reduce(self, g):
-        return [self.mesh.all_reduce(row, TP_AXIS) for row in g]
+        return self._rows(g, lambda row, t: self.mesh.all_reduce(
+            row, TP_AXIS, times=t))
 
     def model_all_gather(self, g, dim: int):
-        return [self.mesh.all_gather(row, TP_AXIS, dim) for row in g]
+        return self._rows(g, lambda row, t: self.mesh.all_gather(
+            row, TP_AXIS, dim, times=t))
 
     def model_reduce_scatter(self, g, dim: int):
-        return [self.mesh.reduce_scatter(row, TP_AXIS, dim) for row in g]
+        return self._rows(g, lambda row, t: self.mesh.reduce_scatter(
+            row, TP_AXIS, dim, times=t))
 
     def model_all_to_all(self, g, split_axis: int, concat_axis: int):
-        return [self.mesh.all_to_all(row, TP_AXIS, split_axis, concat_axis)
-                for row in g]
+        return self._rows(g, lambda row, t: self.mesh.all_to_all(
+            row, TP_AXIS, split_axis, concat_axis, times=t))
 
     def pmean(self, g, axes):
         """``g`` averaged over each of ``axes`` in turn (the mesh's

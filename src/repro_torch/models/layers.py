@@ -74,7 +74,8 @@ def apply_rope(x, positions, theta: float):
     d = x.shape[-1]
     xw = wide(x)
     freqs = rope_freqs(d, theta, x.device, xw.dtype)              # (d/2,)
-    ang = positions[..., :, None, None].to(xw.dtype) * freqs  # (.., S, 1, d/2)
+    ang = (positions[..., :, None, None].to(xw.device, xw.dtype)
+           * freqs)                                 # (.., S, 1, d/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = xw.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -52,15 +52,18 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import standing_for
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.common import (DATA_AXES, TP_AXIS, Entries,
-                                      Initializer, ModelConfig, P, axis_size,
-                                      dp_for, shard, tree_specs, unstack)
+from repro_torch.models.common import (TP_AXIS, Entries, Initializer,
+                                      ModelConfig, P, axis_size,
+                                      block_bytes, dp_for, shard,
+                                      tree_specs, unstack)
 from repro_torch.tree import flatten, map_tree
 
 # the leaves a block keeps in cfg.param_dtype: the norms' scales, the
@@ -85,30 +88,22 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def runs_sharded(mesh, device=None) -> bool:
-    """Whether a model on ``device`` runs sharded over ``mesh`` at run
-    time: a mesh with an axis of more than one entry, whose entries (and
-    the model) are not on ``meta``. A mesh whose every axis has size 1
+    """Whether a model on ``device`` runs sharded over ``mesh``: a mesh with
+    an axis of more than one entry. A mesh whose every axis has size 1
     runs the one-device program, as the reference's (1, 1) mesh gives the
-    unsharded result; a mesh of ``meta`` entries (the dry run's production
-    meshes) only gives the specs (``cache_specs``)."""
+    unsharded result. A mesh of ``meta`` entries (the dry run's
+    production meshes) runs the sharded program on ``meta``, one entry for
+    all (``common.Entries``), and takes a model on ``meta``; a model on
+    ``meta`` takes such a mesh (``ValueError`` otherwise)."""
     if mesh is None or all(n == 1 for n in mesh.shape.values()):
         return False
-    if device is not None and torch.device(device).type == "meta":
-        return False
-    return any(torch.device(d).type != "meta" for d in mesh.devices.flat)
-
-
-def check_sharded(cfg: ModelConfig, mesh) -> None:
-    """Raise ``ValueError`` for a mesh that the sharded program does not
-    cover yet, naming the ROADMAP item that will bring it; the model
-    never runs unsharded in its place. Every config runs sharded over a
-    (data, model) mesh."""
-    other = [a for a in mesh.axis_names
-             if a not in (*DATA_AXES, TP_AXIS) and mesh.shape[a] > 1]
-    if other and axis_size(mesh, TP_AXIS) > 1:
-        raise ValueError(f"{cfg.name}: axes {other} beside a model axis of "
-                         f"{axis_size(mesh, TP_AXIS)}: GPipe with a model "
-                         f"axis is ROADMAP item 34")
+    meta = device is not None and torch.device(device).type == "meta"
+    if meta != bool(getattr(mesh, "abstract", False)):
+        raise ValueError(f"a model on {device} over a mesh of "
+                         f"{sorted({str(d) for d in mesh.devices.flat})}: "
+                         f"a mesh of meta entries and a model on meta go "
+                         f"together")
+    return True
 
 
 def _init_attn_block(ini, cfg: ModelConfig, path: str, stack, use_moe: bool):
@@ -306,11 +301,16 @@ class Model(nn.Module):
     the RWKV6 and Mamba2 layers and the MLPs tensor-parallel over
     ``model``, the MoE blocks expert-parallel, the residual held as S / m
     slices under ``cfg.seq_parallel``, and every byte moved between
-    entries counted in ``mesh.hops`` (``_run_sharded``). A stage axis
-    beside a model axis raises (``check_sharded``). None, or a mesh whose
+    entries counted in ``mesh.hops`` (``_run_sharded``), the backward's
+    too where autograd records (each collective's transpose, and the
+    gradients' all-reduce over the data axes: ``_sharded``). Axes other
+    than the data axes and ``model`` (GPipe's "stage") stand at index 0
+    (``models/pipeline.py`` runs the blocks over them). An entry may sit
+    on another device than the model's: its blocks are copies there, and
+    its part of a cache is copied there and back. None, or a mesh whose
     every axis has size 1, runs the one-device program; a mesh of
-    ``meta`` entries gives only the specs of the cache
-    (``cache_specs``)."""
+    ``meta`` entries runs the sharded program on ``meta``, one entry for
+    all (the dry run's)."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  params=None, trainable: bool = False, mesh=None):
@@ -322,7 +322,6 @@ class Model(nn.Module):
         device = resolve_device(device)
         self._ents = None
         if runs_sharded(mesh, device):
-            check_sharded(cfg, mesh)
             self._ents = Entries(mesh)
             self._specs = param_specs(cfg, mesh)
             self._parts_kept = None
@@ -742,6 +741,26 @@ class Model(nn.Module):
     # run-time sharding over a (data, model) mesh
     # ------------------------------------------------------------------
 
+    def _remat_entries(self, fn, *args):
+        """``_remat`` of a sharded layer, its whole forward rerun in the
+        backward (checkpoint's early stop off: it would cut the last
+        entry's trailing work and no other's), so a rerun moves every
+        collective of the layer again. On an abstract mesh its body runs at
+        ``standing_for(1)``, so the work it does once, outside
+        ``Entries.grid``, is weighed so in the rerun too. Where the entries
+        sit on several devices the layer is rerun by ``_Rerun`` instead."""
+        run = fn
+        if self._ents.one:
+            def run(*a):
+                with standing_for(1):
+                    return fn(*a)
+        if (len({str(d) for row in self._ents.devices for d in row}) > 1
+                and self.trainable and torch.is_grad_enabled()
+                and self.cfg.remat != "none"):
+            return _Rerun.run(run, *args)
+        with set_checkpoint_early_stop(False):
+            return self._remat(run, *args)
+
     def _parts(self):
         """The grid of each entry's parameter tree: its block of every leaf
         by ``param_specs`` (``Entries.part``). A serving model keeps it once
@@ -975,7 +994,7 @@ class Model(nn.Module):
         L = e.grid(logits)
         if L[0][0].shape[-1] < cfg.vocab_size:
             L = e.model_all_gather(L, -1)
-        rows = [row[0].to(self.device) for row in L]
+        rows = e.head_rows(L, self.device)
         return torch.cat(rows, 0) if split else rows[0]
 
     def _sharded(self, batch, cache=None, cache_index=None, chunk=0):
@@ -1018,10 +1037,27 @@ class Model(nn.Module):
         if sp:
             X = e.model_all_gather(X, 1)
         if chunk:
-            return [self._head_sharded(parts, [[x[:, c:c + chunk] for x in row]
-                                               for row in X], split)
-                    for c in range(0, S, chunk)], aux
-        return self._head_sharded(parts, X, split), aux
+            out = [self._head_sharded(parts, e.grid(
+                lambda i, j: X[i][j][:, c:c + chunk]), split)
+                for c in range(0, S, chunk)]
+        else:
+            out = self._head_sharded(parts, X, split)
+        if self.trainable and e.D > 1:
+            self.mesh.count_backward(
+                "all-reduce", out if chunk else [out], self._grad_bytes())
+        return out, aux
+
+    def _grad_bytes(self, skip=()) -> int:
+        """The gradients' all-reduce over the data axes, as the reference
+        counts it (every leaf is replicated over them): each entry's block
+        of every leaf (``param_specs``) but those under the top-level keys
+        ``skip``, once an entry, D M times in all."""
+        e, total = self._ents, []
+        tree = {k: v for k, v in self.params().items() if k not in skip}
+        specs = {k: self._specs[k] for k in tree}
+        map_tree(lambda x, s: total.append(block_bytes(x, s, self.mesh)),
+                 tree, specs)
+        return e.D * e.M * sum(total)
 
     def _run_sharded(self, parts, X, positions, cache, specs, cache_index,
                      sp, patches):
@@ -1033,7 +1069,7 @@ class Model(nn.Module):
         summed load-balance loss)."""
         cfg, e = self.cfg, self._ents
         decode = cache is not None
-        run = _call if decode else self._remat
+        run = _call if decode else self._remat_entries
         aux = torch.zeros((), device=self.device)
 
         def entries(*path):
@@ -1139,6 +1175,65 @@ class Model(nn.Module):
         Y = self._mlp_sharded(gp, "cross_mlp", self._specs["cross"][g],
                               self._norm(gp, "cross_ln2", X), sp)
         return self._add(X, Y), aux
+
+
+class _Rerun(torch.autograd.Function):
+    """Remat of a sharded layer whose entries sit on several devices, "full"
+    or "dots" alike: the layer runs without autograd, and its backward
+    reruns it with autograd and takes the gradients of every tensor it was
+    given (the entries' blocks of the leaves among them), in this one
+    node. A backward over several devices runs a thread a device, and
+    ``torch.utils.checkpoint`` reruns a layer in whichever thread first
+    reads one of its saved tensors, with no lock, so two threads can rerun
+    it at once and break its frame; here one thread does. The numbers are
+    the layer's own; the gradients of a leaf's uses within the layer are
+    summed before the leaf's other uses, where a checkpoint sums them with
+    those (rounding only)."""
+
+    @staticmethod
+    def run(fn, *args):
+        flat, spec = tree_flatten(args)
+        where = [k for k, x in enumerate(flat) if isinstance(x, torch.Tensor)]
+        box = {}
+        outs = _Rerun.apply(fn, flat, spec, where, box,
+                            *[flat[k] for k in where])
+        out, ospec, owhere = box["out"]
+        oflat = list(out)
+        for k, t in zip(owhere, outs):
+            oflat[k] = t
+        return tree_unflatten(oflat, ospec)
+
+    @staticmethod
+    def forward(ctx, fn, flat, spec, where, box, *tensors):
+        ctx.fn, ctx.flat, ctx.spec, ctx.where = fn, flat, spec, where
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*tensors)
+        out = fn(*tree_unflatten(flat, spec))
+        oflat, ospec = tree_flatten(out)
+        owhere = [k for k, x in enumerate(oflat)
+                  if isinstance(x, torch.Tensor)]
+        box["out"] = (oflat, ospec, owhere)
+        return tuple(oflat[k] for k in owhere)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [x.detach().requires_grad_(x.requires_grad)
+                  for x in ctx.saved_tensors]
+        flat = list(ctx.flat)
+        for k, x in zip(ctx.where, inputs):
+            flat[k] = x
+        with torch.enable_grad():
+            out = ctx.fn(*tree_unflatten(flat, ctx.spec))
+        outs = [o for o in tree_flatten(out)[0]
+                if isinstance(o, torch.Tensor)]
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        wrt = [x for x in inputs if x.requires_grad]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True) if pairs and wrt else [None] * len(wrt))
+        return (None, None, None, None, None,
+                *[next(got) if x.requires_grad else None for x in inputs])
 
 
 def _at(tree, *path):

@@ -9,19 +9,19 @@ TPU v5e's:
 FLOPs and bytes are the dry run's counts of one step at the cell's global
 shapes (``launch/dryrun.py``: ``torch.utils.flop_counter`` and a dispatch
 mode summing each op's operand and result bytes), global already: the
-port traces the unsharded program, where the reference multiplies XLA's
-per-partition ``cost_analysis`` by the chip count.
+port traces one entry of the sharded program and weighs each op by the
+entries it stands for, as the reference multiplies XLA's per-partition
+``cost_analysis`` by the chip count.
 
 The reference reads its collective bytes off the partitioned HLO text
 (``parse_collective_bytes``). Their counterpart here is the port's own
-count, ``collective_bytes(mesh)``: the bytes the port's program moves
-between mesh entries, recorded by ``DeviceMesh.hop`` in the reference's
-convention (each participant's output bytes, summed over participants;
-``models/pipeline.py`` is the one program that moves any). A model step
-issues none: the port runs a model unsharded, and the sharded model (the
-reference's ``Model._wsc`` constraints, sequence parallelism and the MoE
-layer's ``all_to_all``) is not ported, so a dry-run cell's collective
-bytes are 0 (ROADMAP.md, Queue 1).
+count, ``collective_bytes(mesh)``: the bytes the sharded program moves
+between mesh entries, recorded by ``DeviceMesh``'s collectives in the
+reference's convention (each participant's output bytes, summed over
+participants), the backward's included (each collective's transpose,
+the remat rerun's collectives, the gradients' all-reduce over the data
+axes). They are the port's own program's, not XLA's: the two place
+their collectives differently (``PERF.md`` compares them by kind).
 
 MODEL_FLOPS = 6·N·D (train) or 2·N·D (forward) with N the *active*
 parameter count — the useful-compute yardstick; ``active_param_count``,

@@ -16,16 +16,20 @@ dry-run cells, their counts and the extrapolation of
   exactly for every arch and shape.
 * Dry run: ``run_cell`` is ``ok`` at reduced depth for ``smollm-360m``,
   ``olmoe-1b-7b`` and ``rwkv6-3b`` on the (4, 2) and (2, 2, 2) meshes of
-  the reference's ``MINI_DRYRUN`` (``tests/test_system.py``), with no
-  collective bytes (the reference's records have them: its model is
-  sharded over the mesh at run time, the port's is not, so no program of
-  a dry-run cell moves a byte between mesh entries).
-* Counts: the ``meta`` trace's FLOPs and bytes equal the same counter's
-  for the step run on CPU tensors (SMOKE size), and its FLOPs equal
-  ``torch.utils.flop_counter.FlopCounterMode``'s.
-* Extrapolation: ``run_roofline_cell``'s extrapolated FLOPs, bytes and
-  argument bytes equal a full-depth trace's exactly, for a dense stack, MoE
-  with a dense prefix, RWKV6, the zamba2 groups and the VLM's groups.
+  the reference's ``MINI_DRYRUN`` (``tests/test_system.py``), the sharded
+  program traced one entry for all: collective bytes above 0 in every
+  kind the program moves (``MINI_KINDS``) and in no other.
+* Counts: on a (1, 1) mesh (one device's program) the ``meta`` trace's
+  FLOPs and bytes equal the same counter's for the step run on CPU
+  tensors (SMOKE size), and its FLOPs equal
+  ``torch.utils.flop_counter.FlopCounterMode``'s. The sharded program's
+  one-entry trace against a run of every entry is
+  ``tests/test_torch_dryrun_sharded.py``'s.
+* Extrapolation: ``run_roofline_cell``'s extrapolated FLOPs, bytes,
+  argument bytes and collective bytes equal a full-depth trace's
+  exactly, for a dense stack, MoE with a dense prefix, RWKV6, the zamba2
+  groups and the VLM's groups, on the (4, 2) mesh; each trace counts
+  only the bytes it moved.
 """
 import dataclasses
 import os
@@ -237,14 +241,26 @@ def _mini(multi_pod=False):
                       names)
 
 
+# the collective kinds a training step of each moves on the mini meshes:
+# the embedding's and the row-parallel sublayers' all-reduces, the
+# logits' all-gather, their transposes (the all-gather's reduce-scatter),
+# the gradients' all-reduce over the data axes, and MoE's all-to-alls
+MINI_KINDS = {
+    "smollm-360m": {"all-reduce", "all-gather", "reduce-scatter"},
+    "olmoe-1b-7b": {"all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all"},
+    "rwkv6-3b": {"all-reduce", "all-gather", "reduce-scatter"},
+}
+
+
 @pytest.mark.parametrize("arch", ["smollm-360m", "olmoe-1b-7b", "rwkv6-3b"])
 def test_mini_dryrun_cells(arch, monkeypatch):
     """The reference's ``MINI_DRYRUN`` cells (2 layers, published width,
     train_4k, its ``small`` cut) on the (4, 2) and (2, 2, 2) meshes,
     swapped in for the production mesh as that test swaps them:
     ``ok``, every count positive, the per-device argument bytes below the
-    unsharded peak, and no collective bytes (the module docstring says
-    why)."""
+    unsharded peak, and the sharded program's collective bytes above 0 in
+    each kind of ``MINI_KINDS`` and 0 in the others."""
     monkeypatch.setattr(dr, "production_mesh", _mini)
     orig = dr.get_config
 
@@ -259,8 +275,11 @@ def test_mini_dryrun_cells(arch, monkeypatch):
         assert rec["status"] == "ok", rec.get("trace")
         assert rec["mesh"] == ("2x2x2" if multi_pod else "4x2")
         assert rec["chips"] == 8
-        assert rec["collective_total"] == 0.0
-        assert set(rec["collective_bytes"]) == set(rl.COLLECTIVES)
+        coll = rec["collective_bytes"]
+        assert set(coll) == set(rl.COLLECTIVES)
+        assert {k for k, v in coll.items() if v} == MINI_KINDS[arch], coll
+        assert rec["collective_total"] == sum(coll.values()) > 0
+        assert rec["t_collective"] > 0
         assert rec["hlo_flops"] > 0 and rec["hlo_bytes"] > 0
         assert rec["compile_s"] == 0.0 and rec["lower_s"] >= 0
         mem = rec["memory"]
@@ -286,7 +305,8 @@ def test_meta_trace_counts_the_program_a_device_runs(arch, kind):
     the CPU (a range check, ``zeros`` and ``scatter_``), a few kB of a
     step's bytes."""
     shape = shp.ShapeSpec(f"tiny_{kind}", 16, 2, kind)
-    mesh = _mini(False)
+    mesh = DeviceMesh(np.full((1, 1), torch.device("meta"), dtype=object),
+                      ("data", "model"))
     meta, *_ = dr.lower_cell(arch, "", mesh, opt_overrides=_smoke(arch),
                              shape=shape)
     cpu, *_ = dr.lower_cell(arch, "", mesh, opt_overrides=_smoke(arch),
@@ -313,23 +333,26 @@ def test_meta_trace_counts_the_program_a_device_runs(arch, kind):
     "llama-3.2-vision-11b"])
 def test_roofline_extrapolation_is_exact(arch, monkeypatch):
     """``run_roofline_cell``'s 1-unit and 2-unit extrapolation against a
-    full-depth trace of the same cell: FLOPs, bytes and per-device
-    argument bytes equal (SMOKE widths at 3 units of depth past the dense
-    prefix, a training step: forward, remat and backward, AdamW)."""
+    full-depth trace of the same cell: FLOPs, bytes, per-device argument
+    bytes and the collective bytes of each kind equal (SMOKE widths at 3
+    units of depth past the dense prefix, a training step: forward, remat
+    and backward, AdamW), on the (4, 2) mesh. The batch is 4, so that it
+    splits over the 4 data shards, as the MoE layer's routing needs."""
     cfg = get_config(arch, smoke=True)
     layers = cfg.first_dense + 3 * dr._layer_unit(cfg)
     monkeypatch.setattr(dr, "production_mesh", _mini)
     monkeypatch.setattr(dr, "get_config", lambda a: get_config(
         a, smoke=True).replace(num_layers=layers))
     monkeypatch.setitem(shp.SHAPES, "tiny_train",
-                        shp.ShapeSpec("tiny_train", 16, 2, "train"))
+                        shp.ShapeSpec("tiny_train", 16, 4, "train"))
     rec = dr.run_roofline_cell(arch, "tiny_train")
     assert rec["status"] == "ok", rec.get("trace")
     full = dr._cell_costs(arch, "tiny_train", _mini(False), layers)
     assert rec["hlo_flops"] == full["flops"]
     assert rec["hlo_bytes"] == full["bytes"]
     assert rec["memory"]["argument_bytes"] == full["args"]
-    assert rec["collective_total"] == 0.0
+    assert rec["collective_bytes"] == full["coll"]
+    assert rec["collective_total"] == sum(full["coll"].values()) > 0
 
 
 @pytest.mark.parametrize("device", ["meta", "cpu"])
@@ -354,10 +377,14 @@ def test_ops_that_alias_without_saying_so_count_as_views(device):
 
 def test_extrapolation_counts_each_trace_hops(monkeypatch):
     """Each trace's collective bytes are its own, not the mesh's count
-    since it was made: a block that moves its input between mesh entries
-    (counted on the cell's mesh, as a sharded model's would be) gives
-    extrapolated collective bytes equal to a full-depth trace's, one
-    block's input a layer."""
+    since it was made: two traces of one cell on one mesh report the same
+    bytes, the mesh holding their sum, and ``run_roofline_cell``'s
+    extrapolated bytes of a 3-layer prefill equal a full-depth trace's:
+    the forward's all-reduces (the embedding's vocabulary shards, each
+    layer's row-parallel MLP; smollm's 3 heads do not split over 2 model
+    ranks, so attention is replicated) and the logits' all-gather, the
+    formulas of ``tests/test_torch_sharded.py:expected`` at this mesh and
+    shape."""
     arch = "smollm-360m"
     cfg = get_config(arch, smoke=True)
     layers = 3
@@ -365,20 +392,21 @@ def test_extrapolation_counts_each_trace_hops(monkeypatch):
     monkeypatch.setattr(dr, "get_config", lambda a: get_config(
         a, smoke=True).replace(num_layers=layers))
     monkeypatch.setitem(shp.SHAPES, "tiny_prefill",
-                        shp.ShapeSpec("tiny_prefill", 16, 2, "prefill"))
-    block = Model._attn_block
-
-    def hopping(self, p, x, *rest):
-        self.mesh.count("all-gather", x.numel() * x.element_size())
-        return block(self, p, x, *rest)
-    monkeypatch.setattr(Model, "_attn_block", hopping)
+                        shp.ShapeSpec("tiny_prefill", 16, 4, "prefill"))
     rec = dr.run_roofline_cell(arch, "tiny_prefill")
     assert rec["status"] == "ok", rec.get("trace")
-    per_layer = 2 * 16 * cfg.d_model * torch.finfo(cfg.cdtype).bits // 8
-    assert rec["collective_bytes"]["all-gather"] == layers * per_layer
-    assert rec["collective_total"] == layers * per_layer
-    full = dr._cell_costs(arch, "tiny_prefill", _mini(False), layers)
-    assert full["coll"]["all-gather"] == layers * per_layer
+    mesh = _mini(False)
+    full = dr._cell_costs(arch, "tiny_prefill", mesh, layers)
+    again = dr._cell_costs(arch, "tiny_prefill", mesh, layers)
+    assert full["coll"] == again["coll"]
+    assert mesh.hops == {k: 2 * v for k, v in full["coll"].items() if v}
+    M, esize = 2, torch.finfo(cfg.cdtype).bits // 8
+    act = M * 4 * 16 * cfg.d_model * esize
+    want = dict.fromkeys(rl.COLLECTIVES, 0)
+    want.update({"all-reduce": act * (1 + layers),
+                 "all-gather": M * 4 * 16 * cfg.vocab_size * esize})
+    assert full["coll"] == want
+    assert rec["collective_bytes"] == want
 
 
 def test_cli_prints_a_cell(capsys):

@@ -23,10 +23,12 @@ vocabulary shards, a cache by position).
   an entry's block of a leaf shares the parameter's storage;
 * ``mesh=None`` and meshes of size-1 axes give the one-device numbers bit
   for bit and move nothing;
-* a stage axis beside a model axis raises, and so does a batch that the
-  data axes do not divide under MoE;
+* a batch that the data axes do not divide raises under MoE (a stage
+  axis beside a model axis is ``tests/test_torch_pipeline.py``'s);
 * ``serve(mesh=)`` gives the reference's greedy tokens on its (2, 4) mesh,
   and ``train(mesh=)`` the one-device losses;
+* a mesh of two device names (``cpu`` and ``cpu:0``, between which torch
+  copies) gives the numbers and bytes of a mesh of one;
 * ``DeviceMesh``'s collectives: values, byte counts, gradients, the fixed
   float32 summation order of a bfloat16 all-reduce.
 """
@@ -341,21 +343,6 @@ def test_no_mesh_and_size_one_meshes_are_the_one_device_program(arch):
         assert m.hops == {}
 
 
-@pytest.mark.parametrize("arch,names,shape,item", [
-    ("olmoe-1b-7b", ("data", "stage", "model"), (1, 2, 2), 34),
-])
-def test_configs_out_of_scope_raise(arch, names, shape, item):
-    """Out of the sharded program's scope: a stage axis beside a model
-    axis raises, naming its ROADMAP item, and never runs unsharded; on a
-    mesh of size-1 axes it builds (the one-device program). Every config
-    runs sharded over a (data, model) mesh
-    (``tests/test_torch_sharded_families.py``)."""
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
-        Model(cfg, device="cpu", mesh=mesh(shape, names))
-    Model(cfg, device="cpu", mesh=mesh((1,) * len(shape), names))
-
-
 def test_batch_the_data_axes_do_not_divide(ref):
     """Under MoE a batch of 3 on 2 data shards raises, as the reference's
     ``shard_map`` does; a dense model replicates it over the data shards
@@ -401,6 +388,46 @@ def test_train_on_a_mesh_matches_one_device():
     got = train(mesh=mesh((2, 4)), **kw)["losses"]
     assert len(got) == 3
     np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+
+
+def test_entries_on_two_devices():
+    """A (2, 4) mesh whose odd model ranks are ``cpu:0`` and the rest
+    ``cpu`` (torch copies between the two names as between two devices):
+    the entries' blocks are copies, the collectives move their tensors
+    between the two, the cache parts are copied there and written back,
+    and the remat'd layers rerun in one autograd node
+    (``transformer._Rerun``). ``olmoe-1b-7b`` SMOKE in float64 against the
+    mesh of ``cpu`` alone: the loss, every gradient leaf and the logits of
+    4 decode steps within 1e-12 of each one's largest, the greedy tokens
+    and the bytes moved equal."""
+    from repro_torch.launch.mesh import make_mesh_for
+    cfg = get_config("olmoe-1b-7b", smoke=True).replace(
+        dtype="float64", param_dtype="float64")
+    tree = Model(cfg, device="cpu").params()
+    b = batch(cfg)
+    runs = []
+    for names in (["cpu"] * 8, [("cpu:0" if j % 2 else "cpu")
+                                for _ in range(2) for j in range(4)]):
+        m = make_mesh_for(names, model_parallel=4)
+        model = Model(cfg, device="cpu", params=tree, trainable=True, mesh=m)
+        loss, _ = model.loss(b)
+        grads = torch.autograd.grad(loss, leaves(model.params()))
+        serving = Model(cfg, device="cpu", params=tree, mesh=m)
+        cache = serving.init_cache(B, S)
+        toks, out = b["tokens"][:, :1], []
+        for t in range(4):
+            logits, cache = serving.decode_step(cache, {"tokens": toks}, t)
+            out.append(logits)
+            toks = logits[:, -1].argmax(-1, keepdim=True)
+        runs.append((loss.detach(), grads, torch.cat(out, 1), dict(m.hops)))
+    (l0, g0, o0, h0), (l1, g1, o1, h1) = runs
+
+    def close(a, b):
+        return float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+    assert close(l1, l0) and close(o1, o0)
+    assert all(close(x, y) for x, y in zip(g1, g0))
+    assert torch.equal(o1.argmax(-1), o0.argmax(-1))
+    assert h1 == h0
 
 
 # --- DeviceMesh's collectives ---------------------------------------------
