@@ -53,6 +53,7 @@ from repro_torch.obs import events as obs
 from repro_torch.obs.aggregate import finite_or_none
 from repro_torch.obs.events import Event
 from repro_torch.obs.sink import as_sink
+from repro_torch.obs.trace import span
 
 # SLA classes (the streaming control plane re-exports these)
 SLA_GUARANTEED = "guaranteed"
@@ -464,25 +465,36 @@ class PlannerSession:
         from repro_torch.core.agora import Plan
         from repro_torch.core.annealer import reference_point
 
-        cluster = self._cluster_for(capacity)
-        problems = [flatten(list(r.dags), cluster.num_resources)
-                    for r in requests]
-        refs = [r.ref if r.ref is not None else reference_point(p, cluster)
-                for r, p in zip(requests, problems)]
-        goals = [r.goal or self.goal for r in requests]
-        bucket_p = self.bucket_p if bucket_override is None else bucket_override
-        batch = SolveBatch(
-            spec=self.spec, problems=problems, cluster=cluster,
-            goal=self.goal, goals=goals, refs=refs, cfg=self.vec_cfg,
-            bucket_p=bucket_p, mesh=self._planner_mesh(),
-            solve_single=lambda p, r, g: self._solve_single(p, r, g, cluster),
-            device=self.device)
+        # the batch's phases, for the solve event (only where it is emitted)
+        phases = [] if self.sink else None
+        with span(phases, "session.prep"):
+            cluster = self._cluster_for(capacity)
+            with span(phases, "session.flatten", "session.prep"):
+                problems = [flatten(list(r.dags), cluster.num_resources)
+                            for r in requests]
+            with span(phases, "session.reference", "session.prep"):
+                refs = [r.ref if r.ref is not None
+                        else reference_point(p, cluster)
+                        for r, p in zip(requests, problems)]
+            goals = [r.goal or self.goal for r in requests]
+            bucket_p = (self.bucket_p if bucket_override is None
+                        else bucket_override)
+            batch = SolveBatch(
+                spec=self.spec, problems=problems, cluster=cluster,
+                goal=self.goal, goals=goals, refs=refs, cfg=self.vec_cfg,
+                bucket_p=bucket_p, mesh=self._planner_mesh(),
+                solve_single=lambda p, r, g: self._solve_single(p, r, g,
+                                                                cluster),
+                device=self.device, spans=phases)
 
+        t_wait = time.time_ns()
         with self._lock:
             n0 = self.engine.cache_size()
+            t_solve = time.time_ns()
             t0 = time.monotonic()
             sols, joint_errors = self.engine.fn(batch)
             dt = time.monotonic() - t0
+            t_end = time.time_ns()
             traced = self.engine.cache_size() > n0
 
             # a 2-axis planner mesh auto-buckets the problem axis up to its
@@ -502,9 +514,11 @@ class PlannerSession:
                  for s in sols]
         trace_ids = [r.trace for r in requests if r.trace is not None]
         if self.sink:
+            phases += [["session.lock", t_wait, t_solve, None],
+                       ["engine.solve", t_solve, t_end, None]]
             self._emit_dispatch(traced, dt, bucket=bucket, jmax=jmax,
                                 omax=omax, warming=warming,
-                                trace_ids=trace_ids)
+                                trace_ids=trace_ids, spans=phases)
             if not warming:
                 data = {"kind": "plan", "n": len(requests),
                         "bucket": bucket, "traced": traced, "seconds": dt}
@@ -537,9 +551,11 @@ class PlannerSession:
                        jmax: Optional[int] = None,
                        omax: Optional[int] = None,
                        warming: bool = False,
-                       trace_ids: Optional[List[str]] = None) -> None:
+                       trace_ids: Optional[List[str]] = None,
+                       spans: Optional[list] = None) -> None:
         """Exactly one of ``bucket_traced`` / ``cache_hit`` per engine
-        dispatch."""
+        dispatch. ``spans`` are the batch's phases (``obs.trace.span``
+        records)."""
         if not self.sink:
             return
         data = {"bucket": bucket, "seconds": seconds, "warming": warming}
@@ -547,6 +563,8 @@ class PlannerSession:
             data["jmax"], data["omax"] = jmax, omax
         if trace_ids:
             data["trace_ids"] = list(trace_ids)
+        if spans:
+            data["spans"] = spans
         self.sink.emit(Event(obs.BUCKET_TRACED if traced else obs.CACHE_HIT,
                              ts=time.monotonic(), data=data))
 

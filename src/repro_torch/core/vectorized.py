@@ -48,6 +48,7 @@ from repro_torch.core.sgs import (schedule_cost, sgs_schedule,
                                   validate_schedule_many)
 from repro_torch.device import FLOAT, INDEX, INT, resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.trace import span
 
 _SQRT_HALF = float(np.float32(math.sqrt(0.5)))
 
@@ -131,6 +132,9 @@ class SolveBatch:
     mesh: object = None
     solve_single: Optional[Callable] = None      # (problem, ref, goal) -> Solution
     device: Optional[torch.device] = None
+    # the solve's phases, appended as ``obs.trace.span`` records by the
+    # engines that time them (None: not recorded)
+    spans: Optional[list] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -850,7 +854,8 @@ def vectorized_anneal_many(problems: Sequence[FlatProblem], cluster: Cluster,
                            refs: Optional[Sequence[Tuple[float, float]]] = None,
                            goals: Optional[Sequence[Goal]] = None,
                            bucket_p=None, mesh=None, *, device=None,
-                           tape: Optional[DrawTape] = None) -> List[Solution]:
+                           tape: Optional[DrawTape] = None,
+                           spans: Optional[list] = None) -> List[Solution]:
     """Anneal P independent problems in one batched device solve.
 
     Returns one ``Solution`` per problem, each re-evaluated event-exactly on
@@ -858,7 +863,9 @@ def vectorized_anneal_many(problems: Sequence[FlatProblem], cluster: Cluster,
     (computed with the default scheduler when omitted); ``goals`` gives each
     tenant its own objective; ``bucket_p`` pads the problem axis to a
     power-of-two bucket. ``tape`` replaces the production draws (the tests
-    replay the reference's through it).
+    replay the reference's through it). ``spans`` (a list) receives the
+    solve's phases: ``engine.pack``, ``engine.build``, ``engine.sa_loop``,
+    ``engine.readback`` and ``engine.reeval``, under ``engine.solve``.
 
     ``mesh`` (a (prob, chain) planner mesh, ``launch.mesh.
     make_planner_mesh``; a 1-D chains mesh counts as one row) shards the
@@ -873,55 +880,65 @@ def vectorized_anneal_many(problems: Sequence[FlatProblem], cluster: Cluster,
     grid = _device_grid(mesh, device)
     home = grid[0, 0]
     t_start = time.monotonic()
-    problems, goals, ref_M, ref_C = _solve_inputs(problems, cluster, goal,
-                                                  refs, goals)
-    if mesh is not None:
-        # power-of-two device counts divide the power-of-two bucket, and
-        # padded problems are inert, so meshing never changes the plans
-        bucket_p = max(int(bucket_p or 1), grid.shape[0])
-    packed = pack_problems(problems, cluster.num_resources, bucket_p=bucket_p)
-    P_pad = packed.padded_problems
-    _check_tape(packed, cfg, tape)
-    ref_Mp, ref_Cp = _pad_refs(ref_M, ref_C, P_pad)
-    weights = (*_goal_arrays(goals, P_pad, home), _t(ref_Mp, FLOAT, home),
-               _t(ref_Cp, FLOAT, home))
-    bdp = BatchedDeviceProblem.build(packed, cluster, ref_Mp, cfg, home)
-    chain_blocks = _split(cfg.chains, grid.shape[1], "chains")
-    shards = []
-    for i, rows in enumerate(_split(P_pad, grid.shape[0], "problems")):
-        row = []
-        for c, chains in enumerate(chain_blocks):
-            dev = grid[i, c]
-            goal_w, dl, dl_w, rM, rC = (x[rows].to(dev) for x in weights)
-            energy_fn = partial(chain_energy, bdp.select(rows, dev), goal_w,
-                                rM, rC, dl, dl_w, use_kernel=cfg.use_kernel)
-            t, opt0, prio0 = _shard_inputs(
-                packed, cfg, dev, tape, rows, chains,
-                c if len(chain_blocks) > 1 else None)
-            row.append((energy_fn, opt0, prio0, t))
-        shards.append(row)
-    _note_signature("isolated", packed, cfg, grid)
-    state = _sa_loop(shards, cfg, shared=False)
+    with span(spans, "engine.pack", "engine.solve"):
+        problems, goals, ref_M, ref_C = _solve_inputs(problems, cluster, goal,
+                                                      refs, goals)
+        if mesh is not None:
+            # power-of-two device counts divide the power-of-two bucket,
+            # and padded problems are inert, so meshing never changes the
+            # plans
+            bucket_p = max(int(bucket_p or 1), grid.shape[0])
+        packed = pack_problems(problems, cluster.num_resources,
+                               bucket_p=bucket_p)
+    with span(spans, "engine.build", "engine.solve"):
+        P_pad = packed.padded_problems
+        _check_tape(packed, cfg, tape)
+        ref_Mp, ref_Cp = _pad_refs(ref_M, ref_C, P_pad)
+        weights = (*_goal_arrays(goals, P_pad, home), _t(ref_Mp, FLOAT, home),
+                   _t(ref_Cp, FLOAT, home))
+        bdp = BatchedDeviceProblem.build(packed, cluster, ref_Mp, cfg, home)
+        chain_blocks = _split(cfg.chains, grid.shape[1], "chains")
+        shards = []
+        for i, rows in enumerate(_split(P_pad, grid.shape[0], "problems")):
+            row = []
+            for c, chains in enumerate(chain_blocks):
+                dev = grid[i, c]
+                goal_w, dl, dl_w, rM, rC = (x[rows].to(dev) for x in weights)
+                energy_fn = partial(chain_energy, bdp.select(rows, dev),
+                                    goal_w, rM, rC, dl, dl_w,
+                                    use_kernel=cfg.use_kernel)
+                t, opt0, prio0 = _shard_inputs(
+                    packed, cfg, dev, tape, rows, chains,
+                    c if len(chain_blocks) > 1 else None)
+                row.append((energy_fn, opt0, prio0, t))
+            shards.append(row)
+        _note_signature("isolated", packed, cfg, grid)
+    with span(spans, "engine.sa_loop", "engine.solve"):
+        state = _sa_loop(shards, cfg, shared=False)
 
-    best_idx = state["best_e"].argmin(dim=1).cpu().numpy()         # (P,)
-    best_opt = state["best_opt"].cpu().numpy()                      # (P, B, J)
-    best_prio = state["best_prio"].cpu().numpy()
+    with span(spans, "engine.readback", "engine.solve"):
+        best_idx = state["best_e"].argmin(dim=1).cpu().numpy()     # (P,)
+        best_opt = state["best_opt"].cpu().numpy()                  # (P, B, J)
+        best_prio = state["best_prio"].cpu().numpy()
     elapsed = time.monotonic() - t_start
 
     sols = []
-    for p, prob in enumerate(problems):
-        Jp = prob.num_tasks
-        oi = best_opt[p, best_idx[p], :Jp].astype(np.int64)
-        pr = best_prio[p, best_idx[p], :Jp].astype(np.float64)
-        # event-exact re-evaluation on the host (removes grid quantization)
-        start, finish = sgs_schedule(prob, oi, priority=pr, caps=cluster.caps)
-        cost = schedule_cost(prob, oi, cluster.prices_per_sec)
-        mk = float(finish.max())
-        sol = Solution(oi, start, finish, mk, cost,
-                       goals[p].energy(mk, cost, ref_M[p], ref_C[p]),
-                       solver="agora-vectorized-many")
-        sol.solve_seconds = elapsed   # batch wall time: one solve for all P
-        sols.append(sol)
+    with span(spans, "engine.reeval", "engine.solve"):
+        for p, prob in enumerate(problems):
+            Jp = prob.num_tasks
+            oi = best_opt[p, best_idx[p], :Jp].astype(np.int64)
+            pr = best_prio[p, best_idx[p], :Jp].astype(np.float64)
+            # event-exact re-evaluation on the host (removes grid
+            # quantization)
+            start, finish = sgs_schedule(prob, oi, priority=pr,
+                                         caps=cluster.caps)
+            cost = schedule_cost(prob, oi, cluster.prices_per_sec)
+            mk = float(finish.max())
+            sol = Solution(oi, start, finish, mk, cost,
+                           goals[p].energy(mk, cost, ref_M[p], ref_C[p]),
+                           solver="agora-vectorized-many")
+            sol.solve_seconds = elapsed   # batch wall time: one solve, all P
+            sols.append(sol)
     _attach_telemetry(sols, state, cfg)
     return sols
 
@@ -1020,7 +1037,8 @@ def vectorized_anneal_shared(problems: Sequence[FlatProblem], cluster: Cluster,
                              refs: Optional[Sequence[Tuple[float, float]]] = None,
                              goals: Optional[Sequence[Goal]] = None,
                              bucket_p=None, mesh=None, *, device=None,
-                             tape: Optional[DrawTape] = None
+                             tape: Optional[DrawTape] = None,
+                             spans: Optional[list] = None
                              ) -> Tuple[List[Solution], List[str]]:
     """Anneal P tenant problems against ONE shared cluster capacity.
 
@@ -1029,6 +1047,7 @@ def vectorized_anneal_shared(problems: Sequence[FlatProblem], cluster: Cluster,
     The picked assembly is re-evaluated event-exactly on the host with ONE
     joint serial-SGS pass under the global caps. Returns ``(solutions,
     joint_errors)``; ``joint_errors`` is the event-exact joint validation.
+    ``spans`` receives the solve's phases, as ``vectorized_anneal_many``'s.
 
     ``mesh`` (the planner mesh) shards the CHAIN axis over its second axis
     and runs on the devices of its first row: the coupled decode is joint
@@ -1042,86 +1061,92 @@ def vectorized_anneal_shared(problems: Sequence[FlatProblem], cluster: Cluster,
     home = grid[0, 0]
     t_start = time.monotonic()
     from repro_torch.core.annealer import reference_point
-    problems, goals, ref_M, ref_C = _solve_inputs(problems, cluster, goal,
-                                                  refs, goals)
-    packed = pack_problems(problems, cluster.num_resources,
-                           shared_capacity=True, bucket_p=bucket_p)
-    _check_tape(packed, cfg, tape)
-    layout = packed.shared_layout()
-    joint = layout.joint_problem()
-    joint_ref = reference_point(joint, cluster)
-    sdp = SharedDeviceProblem.build(layout, cluster, joint_ref[0], cfg, home)
-    P_pad = packed.padded_problems
-    ref_Mp, ref_Cp = _pad_refs(ref_M, ref_C, P_pad)
-    goal_w, dl, dl_w = _goal_arrays(goals, P_pad, home)
-    ref_Mt, ref_Ct = _t(ref_Mp, FLOAT, home), _t(ref_Cp, FLOAT, home)
-    chain_blocks = _split(cfg.chains, grid.shape[1], "chains")
-    row = []
-    for c, chains in enumerate(chain_blocks):
-        dev = grid[0, c]
-        energy_fn = partial(shared_chain_energy, sdp.to(dev),
-                            *(x.to(dev) for x in (goal_w, ref_Mt, ref_Ct,
-                                                  dl, dl_w)),
-                            use_kernel=cfg.use_kernel)
-        t, opt0, prio0 = _shard_inputs(
-            packed, cfg, dev, tape, slice(None), chains,
-            c if len(chain_blocks) > 1 else None)
-        row.append((energy_fn, opt0, prio0, t))
-    _note_signature("shared", packed, cfg, grid[:1])
-    state = _sa_loop([row], cfg, shared=True)
+    with span(spans, "engine.pack", "engine.solve"):
+        problems, goals, ref_M, ref_C = _solve_inputs(problems, cluster, goal,
+                                                      refs, goals)
+        packed = pack_problems(problems, cluster.num_resources,
+                               shared_capacity=True, bucket_p=bucket_p)
+        _check_tape(packed, cfg, tape)
+        layout = packed.shared_layout()
+        joint = layout.joint_problem()
+    with span(spans, "engine.build", "engine.solve"):
+        joint_ref = reference_point(joint, cluster)
+        sdp = SharedDeviceProblem.build(layout, cluster, joint_ref[0], cfg,
+                                        home)
+        P_pad = packed.padded_problems
+        ref_Mp, ref_Cp = _pad_refs(ref_M, ref_C, P_pad)
+        goal_w, dl, dl_w = _goal_arrays(goals, P_pad, home)
+        ref_Mt, ref_Ct = _t(ref_Mp, FLOAT, home), _t(ref_Cp, FLOAT, home)
+        chain_blocks = _split(cfg.chains, grid.shape[1], "chains")
+        row = []
+        for c, chains in enumerate(chain_blocks):
+            dev = grid[0, c]
+            energy_fn = partial(shared_chain_energy, sdp.to(dev),
+                                *(x.to(dev) for x in (goal_w, ref_Mt, ref_Ct,
+                                                      dl, dl_w)),
+                                use_kernel=cfg.use_kernel)
+            t, opt0, prio0 = _shard_inputs(
+                packed, cfg, dev, tape, slice(None), chains,
+                c if len(chain_blocks) > 1 else None)
+            row.append((energy_fn, opt0, prio0, t))
+        _note_signature("shared", packed, cfg, grid[:1])
+    with span(spans, "engine.sa_loop", "engine.solve"):
+        state = _sa_loop([row], cfg, shared=True)
 
     # two candidate assemblies, both spanning the full padded batch:
     # (a) selfish — each tenant's best chain; (b) coherent — the best full
     # joint snapshot any chain proposed. A fresh coupled evaluation of both
     # decides; the strict "<" keeps (a) on ties, which is what keeps the
     # disjoint case equal to isolated mode.
-    pp = torch.arange(P_pad, device=home)
-    best_idx = state["best_e"].argmin(dim=1)                        # (P',)
-    opt_self = state["best_opt"][pp, best_idx]                      # (P', J)
-    prio_self = state["best_prio"][pp, best_idx]
-    b_star = state["jbest_sum"].argmin()
-    opt_coh = state["jbest_opt"][:, b_star]
-    prio_coh = state["jbest_prio"][:, b_star]
-    e2, _, _ = shared_chain_energy(
-        sdp, goal_w, ref_Mt, ref_Ct, dl, dl_w,
-        torch.stack([opt_self, opt_coh], dim=1),                    # (P', 2, J)
-        torch.stack([prio_self, prio_coh], dim=1),
-        use_kernel=cfg.use_kernel)
-    sums = e2.sum(dim=0).cpu().numpy()                              # (2,)
-    pick_opt, pick_prio = ((opt_coh, prio_coh) if sums[1] < sums[0]
-                           else (opt_self, prio_self))
-    opt_pick, prio_pick = pick_opt.cpu().numpy(), pick_prio.cpu().numpy()
+    with span(spans, "engine.readback", "engine.solve"):
+        pp = torch.arange(P_pad, device=home)
+        best_idx = state["best_e"].argmin(dim=1)                    # (P',)
+        opt_self = state["best_opt"][pp, best_idx]                  # (P', J)
+        prio_self = state["best_prio"][pp, best_idx]
+        b_star = state["jbest_sum"].argmin()
+        opt_coh = state["jbest_opt"][:, b_star]
+        prio_coh = state["jbest_prio"][:, b_star]
+        e2, _, _ = shared_chain_energy(
+            sdp, goal_w, ref_Mt, ref_Ct, dl, dl_w,
+            torch.stack([opt_self, opt_coh], dim=1),            # (P', 2, J)
+            torch.stack([prio_self, prio_coh], dim=1),
+            use_kernel=cfg.use_kernel)
+        sums = e2.sum(dim=0).cpu().numpy()                          # (2,)
+        pick_opt, pick_prio = ((opt_coh, prio_coh) if sums[1] < sums[0]
+                               else (opt_self, prio_self))
+        opt_pick, prio_pick = pick_opt.cpu().numpy(), pick_prio.cpu().numpy()
 
-    # re-evaluate the winning assembly event-exactly with ONE host SGS pass
-    # under the global capacity
-    oi_joint = np.concatenate(
-        [opt_pick[p, :pr.num_tasks]
-         for p, pr in enumerate(problems)]).astype(np.int64)
-    pr_joint = np.concatenate(
-        [prio_pick[p, :pr.num_tasks]
-         for p, pr in enumerate(problems)]).astype(np.float64)
-    start, finish = sgs_schedule(joint, oi_joint, priority=pr_joint,
-                                 caps=cluster.caps)
-    elapsed = time.monotonic() - t_start
+    with span(spans, "engine.reeval", "engine.solve"):
+        # re-evaluate the winning assembly event-exactly with ONE host SGS
+        # pass under the global capacity
+        oi_joint = np.concatenate(
+            [opt_pick[p, :pr.num_tasks]
+             for p, pr in enumerate(problems)]).astype(np.int64)
+        pr_joint = np.concatenate(
+            [prio_pick[p, :pr.num_tasks]
+             for p, pr in enumerate(problems)]).astype(np.float64)
+        start, finish = sgs_schedule(joint, oi_joint, priority=pr_joint,
+                                     caps=cluster.caps)
+        elapsed = time.monotonic() - t_start
 
-    sols: List[Solution] = []
-    ois, starts, finishes = [], [], []
-    off = 0
-    for p, prob in enumerate(problems):
-        Jp = prob.num_tasks
-        oi = oi_joint[off:off + Jp]
-        s, f = start[off:off + Jp], finish[off:off + Jp]
-        cost = schedule_cost(prob, oi, cluster.prices_per_sec)
-        mk = float(f.max())
-        sol = Solution(oi, s, f, mk, cost,
-                       goals[p].energy(mk, cost, ref_M[p], ref_C[p]),
-                       solver="agora-vectorized-shared")
-        sol.solve_seconds = elapsed   # batch wall time: one coupled solve
-        sols.append(sol)
-        ois.append(oi), starts.append(s), finishes.append(f)
-        off += Jp
-    joint_errors = validate_schedule_many(problems, ois, starts, finishes,
-                                          cluster.caps)
+        sols: List[Solution] = []
+        ois, starts, finishes = [], [], []
+        off = 0
+        for p, prob in enumerate(problems):
+            Jp = prob.num_tasks
+            oi = oi_joint[off:off + Jp]
+            s, f = start[off:off + Jp], finish[off:off + Jp]
+            cost = schedule_cost(prob, oi, cluster.prices_per_sec)
+            mk = float(f.max())
+            sol = Solution(oi, s, f, mk, cost,
+                           goals[p].energy(mk, cost, ref_M[p], ref_C[p]),
+                           solver="agora-vectorized-shared")
+            sol.solve_seconds = elapsed   # batch wall time: one coupled solve
+            sols.append(sol)
+            ois.append(oi), starts.append(s), finishes.append(f)
+            off += Jp
+        joint_errors = validate_schedule_many(problems, ois, starts, finishes,
+                                              cluster.caps)
     _attach_telemetry(sols, state, cfg)
     return sols, joint_errors
 
@@ -1152,7 +1177,7 @@ def _isolated_engine(batch: SolveBatch):
     sols = vectorized_anneal_many(batch.problems, batch.cluster, batch.goal,
                                   batch.cfg, batch.refs, goals=batch.goals,
                                   bucket_p=batch.bucket_p, mesh=batch.mesh,
-                                  device=batch.device)
+                                  device=batch.device, spans=batch.spans)
     return sols, None
 
 
@@ -1160,7 +1185,7 @@ def _shared_engine(batch: SolveBatch):
     return vectorized_anneal_shared(batch.problems, batch.cluster, batch.goal,
                                     batch.cfg, batch.refs, goals=batch.goals,
                                     bucket_p=batch.bucket_p, mesh=batch.mesh,
-                                    device=batch.device)
+                                    device=batch.device, spans=batch.spans)
 
 
 register_engine("isolated", _isolated_engine,

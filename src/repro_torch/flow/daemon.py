@@ -606,7 +606,7 @@ class PlannerService:
                       "trace_ids": [p.request.trace for p in batch
                                     if p.request.trace]}))
         task = asyncio.create_task(
-            self._dispatch(entry, batch, cause),
+            self._dispatch(entry, batch, cause, time.time_ns()),
             name=f"dispatch-{entry.spec.name}-{self.stats_counters.batches}")
         self._dispatches.add(task)
         task.add_done_callback(self._dispatches.discard)
@@ -698,12 +698,17 @@ class PlannerService:
 
     def _finish_batch(self, entry: _PoolEntry, batch: List[_Pending],
                       results: Sequence[PlanResult], cause: str, *,
-                      warm: bool, degraded: bool = False) -> None:
+                      warm: bool, degraded: bool = False,
+                      phases: Optional[Tuple[int, int, int]] = None) -> None:
         """Resolve the batch's futures and narrate the outcome: one
         dispatch event (wall latencies feed the aggregator's p50/p99),
         plus the per-request plan-level deadline verdict — virtual
         delivery time + planned completion vs the absolute deadline, the
-        same verdict the benchmarks compute post-hoc."""
+        same verdict the benchmarks compute post-hoc. ``phases`` are the
+        ``time.time_ns()`` of the flush and of the solving attempt's start
+        and end on the pool's worker thread (so ``daemon.wait`` holds any
+        failed attempts and injected delays before it)."""
+        t_back = time.time_ns()
         pool = entry.spec.name
         wall = time.monotonic()  # wall clock: dispatch wall latency (p50/p99)
         done_v = self._now()
@@ -721,6 +726,11 @@ class PlannerService:
                                   if p.request.trace]}
             if degraded:
                 data["degraded"] = True
+            if phases is not None:
+                t_flush, t_run, t_ret = phases
+                data["spans"] = [["daemon.wait", t_flush, t_run, None],
+                                 ["daemon.solve", t_run, t_ret, None],
+                                 ["daemon.return", t_ret, t_back, None]]
             self.sink.emit(Event(obs.DISPATCH, ts=done_v, pool=pool,
                                  data=data))
             for p, res in zip(batch, results):
@@ -737,7 +747,7 @@ class PlannerService:
                               "completion": completion, "failed": False}))
 
     async def _dispatch(self, entry: _PoolEntry, batch: List[_Pending],
-                        cause: str = "fill") -> None:
+                        cause: str, flushed_ns: int) -> None:
         now_v = self._now()
         pool = entry.spec.name
         tids = [p.request.trace for p in batch if p.request.trace]
@@ -781,6 +791,14 @@ class PlannerService:
         loop = asyncio.get_running_loop()
         exc: Optional[BaseException] = None
         results = None
+
+        def solve():
+            # the worker thread's start and end of the solve, on the
+            # profiler's clock
+            t_run = time.time_ns()
+            res = entry.session.plan(requests, capacity=capacity)
+            return res, t_run, time.time_ns()
+
         t0 = time.monotonic()  # wall clock: breaker latency is wall seconds
         for attempt in range(1 + self.cfg.solve_retries):
             # chaos verdict, one draw per ATTEMPT (retries re-roll): an
@@ -801,9 +819,8 @@ class PlannerService:
             try:
                 if fault is not None and fault.kind == "error":
                     raise InjectedFault("chaos: solver error")
-                results = await loop.run_in_executor(
-                    executor, lambda: entry.session.plan(
-                        requests, capacity=capacity))
+                results, t_run, t_ret = await loop.run_in_executor(
+                    executor, solve)
                 break
             except Exception as e:  # noqa: BLE001 — supervised below
                 exc = e
@@ -842,7 +859,8 @@ class PlannerService:
                           # wall clock: breaker wall latency
                           "latency_s": time.monotonic() - t0,
                           "trace_ids": tids}))
-            self._finish_batch(entry, batch, results, cause, warm=warm)
+            self._finish_batch(entry, batch, results, cause, warm=warm,
+                               phases=(flushed_ns, t_run, t_ret))
             if not warm and self.cfg.auto_widen and self._running:
                 self._pre_warm_next(entry, requests, jmax, omax)
             return

@@ -26,12 +26,21 @@ chronological chain; ``chain_complete`` is the gate primitive
 ``bench_daemon --smoke`` asserts on (submit root AND a terminal span for
 every daemon-served request).
 
+Inside one batch, the session's ``cache_hit`` / ``bucket_traced`` event
+and the daemon's ``dispatch`` event carry the batch's phases under
+``data["spans"]``: ``[name, start_ns, end_ns, parent]`` records on
+``time.time_ns()`` (the clock ``torch.profiler`` stamps its events on),
+``parent`` the name of the enclosing phase or ``None`` at a layer's top.
+``span`` records one; ``render_trace`` prints them under their event.
+
 Pure stdlib, like the rest of ``repro_torch.obs`` — usable without jax.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
+import time
 import uuid
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -59,6 +68,18 @@ class TraceIds:
     def next(self) -> str:
         with self._lock:
             return f"{self._prefix}-{next(self._count):04d}"
+
+
+@contextlib.contextmanager
+def span(record: Optional[list], name: str, parent: Optional[str] = None):
+    """Append ``[name, start_ns, end_ns, parent]`` for the ``with`` body to
+    ``record`` (nothing where ``record`` is None, or the body raised)."""
+    if record is None:
+        yield
+        return
+    t0 = time.time_ns()
+    yield
+    record.append([name, t0, time.time_ns(), parent])
 
 
 def member_ids(event: Event) -> Sequence[str]:
@@ -121,4 +142,17 @@ def render_trace(events: Iterable[Event], trace_id: str) -> str:
         where = f" pool={e.pool}" if e.pool else ""
         lines.append(f"  +{e.ts - t0:10.3f}s  {e.type:<20} {who}{where}"
                      f"  {' '.join(extras)}".rstrip())
+        lines.extend(_phase_lines(e.data.get("spans") or ()))
     return "\n".join(lines)
+
+
+def _phase_lines(records: Sequence[Sequence]) -> List[str]:
+    """A batch event's phases, each indented under its parent, in ms."""
+    depth: Dict[str, int] = {}
+    out = []
+    for name, start, end, parent in sorted(records,
+                                           key=lambda r: (r[1], -r[2])):
+        d = depth[name] = depth.get(parent, -1) + 1 if parent else 0
+        out.append(f"{'':16}{'  ' * d}{name:<{24 - 2 * d}}"
+                   f"{(end - start) / 1e6:10.3f} ms")
+    return out

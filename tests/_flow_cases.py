@@ -9,7 +9,8 @@ masked: the flow's wall-clock sites (``flow/daemon.py`` submit, dispatch
 and breaker latencies, the degraded path's solve seconds; the executor's
 real-mode timings, which no simulated run reaches) and the session's own
 events, whose ``ts`` and ``seconds`` ``core/session.py`` reads from
-``time.monotonic``. Nothing else is masked.
+``time.monotonic``. Nothing else is masked. The port's own batch phases
+(``spans``), which the reference does not record, are left out.
 """
 import dataclasses
 import importlib
@@ -37,6 +38,9 @@ _SESSION_TYPES = ("bucket_traced", "cache_hit", "plan_solved",
                   "solve_profile", "admission_decision")
 # flow data fields written from time.monotonic (flow/daemon.py)
 _WALL_DATA = {"dispatch": ("latency_s",), "pool_degraded": ("latency_s",)}
+# data keys only the port writes: a batch's phases on time.time_ns
+# (session solve events, daemon dispatch events)
+_PORT_DATA = ("spans",)
 MASK = "<wall>"
 
 
@@ -144,6 +148,8 @@ def tape(events):
         for key in _WALL_DATA.get(d["type"], ()):
             if key in data:
                 data[key] = MASK
+        for key in _PORT_DATA:
+            data.pop(key, None)
         d["data"] = data
         out.append(d)
     return out
