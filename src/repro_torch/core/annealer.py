@@ -41,9 +41,7 @@ class AnnealConfig:
 def _inner_solve(problem: FlatProblem, option_idx: np.ndarray, caps: np.ndarray,
                  cfg: AnnealConfig) -> Tuple[np.ndarray, np.ndarray, bool]:
     J = problem.num_tasks
-    dur_all, dem_all, _, _ = problem.option_arrays()
-    durations = dur_all[np.arange(J), option_idx]
-    demands = dem_all[np.arange(J), option_idx]
+    durations, demands = problem.chosen_options(option_idx)
     if J <= cfg.exact_task_limit:
         return solve_exact(problem, option_idx, caps,
                            node_budget=cfg.exact_node_budget,

@@ -25,9 +25,12 @@ from repro_torch.core.predictor import ernest_select
 from repro_torch.core.sgs import schedule_cost, sgs_schedule
 
 
-def _finish(problem, option_idx, start, finish, cluster, solver, t0,
+def _finish(problem, option_idx, chosen, start, finish, cluster, solver, t0,
             optimal=False) -> Solution:
-    cost = schedule_cost(problem, option_idx, cluster.prices_per_sec)
+    """``chosen``: the (durations, demands) of ``option_idx``
+    (``FlatProblem.chosen_options``)."""
+    cost = schedule_cost(problem, option_idx, cluster.prices_per_sec,
+                         *chosen)
     return Solution(option_idx, start, finish, float(finish.max()), cost,
                     solver=solver, solve_seconds=time.monotonic() - t0,
                     optimal_schedule=optimal)
@@ -38,10 +41,13 @@ def airflow_plan(problem: FlatProblem, cluster: Cluster) -> Solution:
     FIFO among equal priorities, default configs."""
     t0 = time.monotonic()
     option_idx = np.asarray([t.default_option for t in problem.tasks], np.int64)
+    durations, demands = problem.chosen_options(option_idx)
     pr = problem.as_dag().downstream_counts().astype(float)
     start, finish = sgs_schedule(problem, option_idx, priority=pr,
-                                 caps=cluster.caps)
-    return _finish(problem, option_idx, start, finish, cluster, "airflow", t0)
+                                 caps=cluster.caps, durations=durations,
+                                 demands=demands)
+    return _finish(problem, option_idx, (durations, demands), start,
+                   finish, cluster, "airflow", t0)
 
 
 def _ernest_configs(problem: FlatProblem, goal_name: str) -> np.ndarray:
@@ -53,13 +59,13 @@ def cp_ernest_plan(problem: FlatProblem, cluster: Cluster, goal_name: str) -> So
     """Separate optimization: Ernest VM selection then critical-path SGS."""
     t0 = time.monotonic()
     option_idx = _ernest_configs(problem, goal_name)
-    dur_all, dem_all, _, _ = problem.option_arrays()
-    J = problem.num_tasks
-    durations = dur_all[np.arange(J), option_idx]
+    durations, demands = problem.chosen_options(option_idx)
     tails = problem.as_dag().critical_path_lengths(durations)
     start, finish = sgs_schedule(problem, option_idx, priority=tails,
-                                 caps=cluster.caps)
-    return _finish(problem, option_idx, start, finish, cluster, "cp+ernest", t0)
+                                 caps=cluster.caps, durations=durations,
+                                 demands=demands)
+    return _finish(problem, option_idx, (durations, demands), start,
+                   finish, cluster, "cp+ernest", t0)
 
 
 def milp_ernest_plan(problem: FlatProblem, cluster: Cluster, goal_name: str,
@@ -70,8 +76,8 @@ def milp_ernest_plan(problem: FlatProblem, cluster: Cluster, goal_name: str,
     option_idx = _ernest_configs(problem, goal_name)
     start, finish, opt = solve_exact(problem, option_idx, cluster.caps,
                                      node_budget=node_budget)
-    return _finish(problem, option_idx, start, finish, cluster, "milp+ernest",
-                   t0, optimal=opt)
+    return _finish(problem, option_idx, problem.chosen_options(option_idx),
+                   start, finish, cluster, "milp+ernest", t0, optimal=opt)
 
 
 def stratus_plan(problem: FlatProblem, cluster: Cluster) -> Solution:
@@ -82,15 +88,15 @@ def stratus_plan(problem: FlatProblem, cluster: Cluster) -> Solution:
     feasibility."""
     t0 = time.monotonic()
     option_idx = _ernest_configs(problem, "runtime")
-    dur_all, dem_all, _, _ = problem.option_arrays()
-    J = problem.num_tasks
-    durations = dur_all[np.arange(J), option_idx]
+    durations, demands = problem.chosen_options(option_idx)
     # runtime-class priority: tasks in the same 2^k duration bin group together
     bins = np.floor(np.log2(np.maximum(durations, 1e-6)))
     priority = -bins * 1000.0 - np.argsort(np.argsort(durations))
     start, finish = sgs_schedule(problem, option_idx, priority=priority,
-                                 caps=cluster.caps)
-    return _finish(problem, option_idx, start, finish, cluster, "stratus", t0)
+                                 caps=cluster.caps, durations=durations,
+                                 demands=demands)
+    return _finish(problem, option_idx, (durations, demands), start,
+                   finish, cluster, "stratus", t0)
 
 
 def agora_separate_plan(problem: FlatProblem, cluster: Cluster, goal: Goal) -> Solution:
@@ -102,8 +108,8 @@ def agora_separate_plan(problem: FlatProblem, cluster: Cluster, goal: Goal) -> S
     option_idx = _ernest_configs(problem, goal_name)
     start, finish, opt = solve_exact(problem, option_idx, cluster.caps,
                                      node_budget=60_000, time_budget=2.0)
-    return _finish(problem, option_idx, start, finish, cluster,
-                   "agora-separate", t0, optimal=opt)
+    return _finish(problem, option_idx, problem.chosen_options(option_idx),
+                   start, finish, cluster, "agora-separate", t0, optimal=opt)
 
 
 def predictor_only_plan(problem: FlatProblem, cluster: Cluster, goal: Goal) -> Solution:
@@ -112,9 +118,13 @@ def predictor_only_plan(problem: FlatProblem, cluster: Cluster, goal: Goal) -> S
     t0 = time.monotonic()
     goal_name = "runtime" if goal.w >= 0.75 else ("cost" if goal.w <= 0.25 else "balanced")
     option_idx = _ernest_configs(problem, goal_name)
+    durations, demands = problem.chosen_options(option_idx)
     pr = problem.as_dag().downstream_counts().astype(float)
-    start, finish = sgs_schedule(problem, option_idx, priority=pr, caps=cluster.caps)
-    return _finish(problem, option_idx, start, finish, cluster, "predictor-only", t0)
+    start, finish = sgs_schedule(problem, option_idx, priority=pr,
+                                 caps=cluster.caps, durations=durations,
+                                 demands=demands)
+    return _finish(problem, option_idx, (durations, demands), start,
+                   finish, cluster, "predictor-only", t0)
 
 
 def scheduler_only_plan(problem: FlatProblem, cluster: Cluster) -> Solution:
@@ -124,8 +134,8 @@ def scheduler_only_plan(problem: FlatProblem, cluster: Cluster) -> Solution:
     option_idx = np.asarray([t.default_option for t in problem.tasks], np.int64)
     start, finish, opt = solve_exact(problem, option_idx, cluster.caps,
                                      node_budget=60_000, time_budget=2.0)
-    return _finish(problem, option_idx, start, finish, cluster,
-                   "scheduler-only", t0, optimal=opt)
+    return _finish(problem, option_idx, problem.chosen_options(option_idx),
+                   start, finish, cluster, "scheduler-only", t0, optimal=opt)
 
 
 def brute_force_plan(problem: FlatProblem, cluster: Cluster, goal: Goal,

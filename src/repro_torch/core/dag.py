@@ -31,6 +31,11 @@ class Task:
     options: List[TaskOption]
     default_option: int = 0        # the user/prior-run configuration
 
+    def option(self, o: int) -> TaskOption:
+        """Option ``o``; an index past the last option takes the last (the
+        padding rule of ``FlatProblem.option_arrays``)."""
+        return self.options[min(o, len(self.options) - 1)]
+
 
 @dataclasses.dataclass
 class DAG:
@@ -119,22 +124,23 @@ class FlatProblem:
         """Pad per-task options to rectangular arrays.
 
         Returns (durations (J,O), demands (J,O,M), costs (J,O), n_opts (J,)).
-        Padded slots repeat the last real option."""
-        J = self.num_tasks
+        Padded slots repeat the last real option (``Task.option``)."""
         O = max(len(t.options) for t in self.tasks)
-        M = self.num_resources
-        dur = np.zeros((J, O))
-        dem = np.zeros((J, O, M))
-        cost = np.zeros((J, O))
-        n = np.zeros(J, np.int64)
-        for j, t in enumerate(self.tasks):
-            n[j] = len(t.options)
-            for o in range(O):
-                opt = t.options[min(o, len(t.options) - 1)]
-                dur[j, o] = opt.duration
-                dem[j, o] = opt.demands
-                cost[j, o] = opt.cost
+        rows = [[t.option(o) for o in range(O)] for t in self.tasks]
+        dur = np.array([[x.duration for x in r] for r in rows], float)
+        dem = np.array([[x.demands for x in r] for r in rows], float)
+        cost = np.array([[x.cost for x in r] for r in rows], float)
+        n = np.array([len(t.options) for t in self.tasks], np.int64)
         return dur, dem, cost, n
+
+    def chosen_options(self, option_idx) -> Tuple[np.ndarray, np.ndarray]:
+        """(durations (J,), demands (J, M)) of each task's chosen option,
+        read from the tasks alone (``Task.option``)."""
+        opts = [t.option(o)
+                for t, o in zip(self.tasks, np.asarray(option_idx).tolist())]
+        dur = np.array([o.duration for o in opts], float)
+        dem = np.array([o.demands for o in opts], float)
+        return dur, dem.reshape(len(opts), self.num_resources)
 
 
 @dataclasses.dataclass

@@ -31,9 +31,7 @@ def solve_exact(problem: FlatProblem, option_idx: np.ndarray,
                 time_budget: float = 10.0) -> Tuple[np.ndarray, np.ndarray, bool]:
     """Returns (start, finish, proven_optimal)."""
     J = problem.num_tasks
-    dur_all, dem_all, _, _ = problem.option_arrays()
-    durations = dur_all[np.arange(J), option_idx]
-    demands = dem_all[np.arange(J), option_idx]
+    durations, demands = problem.chosen_options(option_idx)
 
     preds: List[List[int]] = [[] for _ in range(J)]
     succs: List[List[int]] = [[] for _ in range(J)]

@@ -330,6 +330,23 @@ def _normalize_request(req, i: int) -> PlanRequest:
     return req
 
 
+def check_demands(req: PlanRequest, i: int = 0) -> None:
+    """Refuse a request whose task options hold a negative or non-finite
+    demand. The scheduler (``core/sgs.py``) refuses such demands for the
+    whole problem it places, so inside a batch one of them would fail
+    every request beside it; a service checks each request on entry."""
+    for d in req.dags:
+        for t in d.tasks:
+            for o in t.options:
+                for x in o.demands:
+                    if not 0.0 <= x < math.inf:
+                        raise ValueError(
+                            f"requests[{i}]: DAG {d.name!r} task "
+                            f"{t.name!r} option {o.label!r}: demands must "
+                            f"be finite and non-negative, got "
+                            f"{tuple(o.demands)!r}")
+
+
 # ---------------------------------------------------------------------------
 # The session
 # ---------------------------------------------------------------------------

@@ -930,9 +930,11 @@ def vectorized_anneal_many(problems: Sequence[FlatProblem], cluster: Cluster,
             pr = best_prio[p, best_idx[p], :Jp].astype(np.float64)
             # event-exact re-evaluation on the host (removes grid
             # quantization)
+            dur, dem = prob.chosen_options(oi)
             start, finish = sgs_schedule(prob, oi, priority=pr,
-                                         caps=cluster.caps)
-            cost = schedule_cost(prob, oi, cluster.prices_per_sec)
+                                         caps=cluster.caps, durations=dur,
+                                         demands=dem)
+            cost = schedule_cost(prob, oi, cluster.prices_per_sec, dur, dem)
             mk = float(finish.max())
             sol = Solution(oi, start, finish, mk, cost,
                            goals[p].energy(mk, cost, ref_M[p], ref_C[p]),
@@ -1125,8 +1127,10 @@ def vectorized_anneal_shared(problems: Sequence[FlatProblem], cluster: Cluster,
         pr_joint = np.concatenate(
             [prio_pick[p, :pr.num_tasks]
              for p, pr in enumerate(problems)]).astype(np.float64)
+        dur, dem = joint.chosen_options(oi_joint)
         start, finish = sgs_schedule(joint, oi_joint, priority=pr_joint,
-                                     caps=cluster.caps)
+                                     caps=cluster.caps, durations=dur,
+                                     demands=dem)
         elapsed = time.monotonic() - t_start
 
         sols: List[Solution] = []
@@ -1136,7 +1140,8 @@ def vectorized_anneal_shared(problems: Sequence[FlatProblem], cluster: Cluster,
             Jp = prob.num_tasks
             oi = oi_joint[off:off + Jp]
             s, f = start[off:off + Jp], finish[off:off + Jp]
-            cost = schedule_cost(prob, oi, cluster.prices_per_sec)
+            cost = schedule_cost(prob, oi, cluster.prices_per_sec,
+                                 dur[off:off + Jp], dem[off:off + Jp])
             mk = float(f.max())
             sol = Solution(oi, s, f, mk, cost,
                            goals[p].energy(mk, cost, ref_M[p], ref_C[p]),

@@ -73,7 +73,7 @@ from repro_torch.core.objectives import Goal
 from repro_torch.core.session import (SLA_CLASSES, SLA_GUARANTEED,
                                       SLA_STANDARD, AdmissionDecision,
                                       PlanRequest, PlanResult,
-                                      _normalize_request)
+                                      _normalize_request, check_demands)
 from repro_torch.flow.chaos import InjectedFault
 from repro_torch.obs import events as obs
 from repro_torch.obs.aggregate import EventAggregator, finite_or_none
@@ -468,6 +468,7 @@ class PlannerService:
             raise RuntimeError("PlannerService is not running "
                                "(use 'async with service:' or await start())")
         request = _normalize_request(request, 0)
+        check_demands(request)
         entry = self._route(request, pool)
         self.stats_counters.submitted += 1
         now_v = self._now()

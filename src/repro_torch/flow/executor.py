@@ -208,9 +208,8 @@ class FlowRunner:
             preds[b].append(a)
         self._load_state()
 
-        dur_all, dem_all, _, _ = problem.option_arrays()
         oi = self.plan.solution.option_idx
-        task_dem = dem_all[np.arange(J), oi] if J else dem_all.reshape(0, -1)
+        task_dem = problem.chosen_options(oi)[1]
         base_caps = np.asarray(self.plan.cluster.caps, float)
         # chaos revocation timeline (None when no chaos attached — the
         # default path never consults it): ``caps`` is rebound at every
@@ -441,7 +440,7 @@ class FlowRunner:
         for j in sorted(self.done):
             # backoff windows hold no resources -> not billed
             d = self.done[j] - self.started[j] - backoff_idle.get(j, 0.0)
-            task_cost[j] = float((dem_all[j, oi[j]] * prices).sum() * d)
+            task_cost[j] = float((task_dem[j] * prices).sum() * d)
             cost += task_cost[j]
         unlaunched = sorted(j for j in range(J) if j not in self.done)
         if unlaunched:

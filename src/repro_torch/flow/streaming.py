@@ -767,10 +767,9 @@ class StreamingRunner(MultiTenantRunner):
         dem: List[np.ndarray] = []
         owner: List[_TenantState] = []
         for s, plan in good:
-            _, dem_all, _, _ = plan.problem.option_arrays()
-            oi = plan.solution.option_idx
-            for j in range(plan.problem.num_tasks):
-                dem.append(np.asarray(dem_all[j, oi[j]], float))
+            for r in plan.problem.chosen_options(
+                    plan.solution.option_idx)[1]:
+                dem.append(r)
                 owner.append(s)
         base = np.asarray(self.agora.cluster.caps, float)
         prices = np.asarray(self.agora.cluster.prices_per_sec, float)
@@ -1009,14 +1008,13 @@ class StreamingRunner(MultiTenantRunner):
         off = 0
         for _, plan in plans:
             prob = plan.problem
-            _, dem_all, _, _ = prob.option_arrays()
-            oi = plan.solution.option_idx
+            task_dem = prob.chosen_options(plan.solution.option_idx)[1]
             for j in range(prob.num_tasks):
                 jj = off + j
                 if jj in res.task_finish:
                     out.append((clock + res.task_start[jj],
                                 clock + res.task_finish[jj],
-                                dem_all[j, oi[j]]))
+                                task_dem[j]))
             off += prob.num_tasks
         return out
 

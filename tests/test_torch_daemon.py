@@ -284,3 +284,46 @@ def test_metrics_text_is_the_reference_format():
     text = pkg("repro_torch").daemon.metrics_text(snap)
     assert text == pkg("repro").daemon.metrics_text(snap)
     assert 'planner_pool_degraded{pool="shared"} 1' in text
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["isolated", "shared"])
+@pytest.mark.parametrize("bad", [-1.0, float("nan"), float("inf")],
+                         ids=["negative", "nan", "inf"])
+def test_bad_demand_is_refused_alone(shared, bad):
+    """A request whose option demands are negative or not finite is
+    refused at the front door (``ValueError``, and 400 over HTTP); the
+    requests submitted beside it are batched and planned without it."""
+    P = pkg("repro_torch")
+    Dm, D = P.daemon, P.dag
+    svc = Dm.PlannerService(agora(P, unit_cluster(P)), Dm.DaemonConfig(
+        pools=(Dm.PoolSpec("p", shared_capacity=shared, bucket_p=True),),
+        max_batch=2, max_wait_s=1e6, clock=VClock()))
+    bad_dag = D.DAG("bad", [D.Task("t", [D.TaskOption("o", 2.0, (bad,),
+                                                      7.2)])], [])
+
+    async def refused():
+        try:
+            await svc.submit(bad_dag)
+        except ValueError as exc:
+            return str(exc)
+        return None
+
+    async def drive():
+        async with svc:
+            http = Dm.PlannerHTTPServer(svc)
+            _, port = await http.start()
+            got = await asyncio.gather(svc.submit(chain_dag(P, "a")),
+                                       refused(),
+                                       svc.submit(chain_dag(P, "b")))
+            status, body = await _post(port, {"dag": Dm.dag_to_json(bad_dag)})
+            await http.stop()
+            return got, status, body
+
+    (a, err, b), status, body = asyncio.run(asyncio.wait_for(drive(), 120))
+    assert err is not None and "non-negative" in err
+    assert status == 400 and "non-negative" in body["error"]
+    for name, res in (("a", a), ("b", b)):
+        assert res.request.name == name and not res.degraded
+        assert res.plan.validate() == []
+    st = svc.stats()
+    assert st["served"] == 2 and st["flush_fill"] == 1

@@ -372,3 +372,73 @@ def test_b1_decode_wrappers_match_reference(seed):
             assert float(mk_g) == float(mk_w)
             assert int(inf_g) == int(inf_w) and inf_g.dtype == torch.int32
             np.testing.assert_allclose(float(c_g), float(c_w), rtol=1e-6)
+
+
+# --- the host re-evaluation against the reference's SGS -------------------
+
+
+def _aws_tenants(n):
+    """``n`` paper DAGs (DAG1, DAG2 and the motivation DAG in turn) on the
+    m5 cluster, whose 16 instances a type they contend for."""
+    from repro_torch.cluster.catalog import paper_cluster
+    from repro_torch.cluster.workloads import dag1, dag2, motivation_dag
+    cluster = paper_cluster()
+    makers = (dag1, dag2, motivation_dag)
+    return cluster, [tdag.flatten([makers[i % 3](cluster)],
+                                  cluster.num_resources) for i in range(n)]
+
+
+@pytest.mark.parametrize("case", ["alibaba", "aws-m5"])
+@pytest.mark.parametrize("shared", [False, True], ids=["isolated", "shared"])
+def test_reeval_matches_reference_sgs(monkeypatch, shared, case):
+    """Each returned Solution's start, finish, makespan and cost equal what
+    the reference's ``sgs_schedule`` and ``schedule_cost`` give on the
+    options and priorities the engine picked (recorded at its
+    ``sgs_schedule``); the shared engine's on the joint problem."""
+    from repro.core import sgs as rsgs
+    from _sgs_cases import as_reference
+    if case == "alibaba":
+        _, _, cluster, probs = _problems()
+    else:
+        cluster, probs = _aws_tenants(6)
+    calls = []
+    real = tvec.sgs_schedule
+
+    def recorded(problem, option_idx, priority=None, caps=None, **kw):
+        calls.append((problem, np.array(option_idx), np.array(priority),
+                      np.array(caps)))
+        return real(problem, option_idx, priority=priority, caps=caps, **kw)
+
+    monkeypatch.setattr(tvec, "sgs_schedule", recorded)
+    if shared:
+        sols, joint_errors = tvec.vectorized_anneal_shared(
+            probs, cluster, TGoal.balanced(), TCFG, device=CPU)
+        assert joint_errors == []
+        (joint, oi, pr, caps), = calls
+        ref_s, ref_f = rsgs.sgs_schedule(as_reference(joint), oi,
+                                         priority=pr, caps=caps)
+        cuts = np.cumsum([0] + [p.num_tasks for p in probs])
+        picked = [(oi[a:b], ref_s[a:b], ref_f[a:b])
+                  for a, b in zip(cuts[:-1], cuts[1:])]
+        if case == "aws-m5":
+            ready = np.zeros(joint.num_tasks)
+            for a, b in joint.edges:
+                ready[b] = max(ready[b], ref_f[a])
+            assert np.any(ref_s > ready)      # the shared capacity binds
+    else:
+        sols = tvec.vectorized_anneal_many(probs, cluster, TGoal.balanced(),
+                                           TCFG, device=CPU)
+        assert [c[0] for c in calls] == probs
+        picked = []
+        for prob, oi, pr, caps in calls:
+            s, f = rsgs.sgs_schedule(as_reference(prob), oi, priority=pr,
+                                     caps=caps)
+            picked.append((oi, s, f))
+    assert len(sols) == len(probs) == len(picked)
+    for sol, prob, (oi, s, f) in zip(sols, probs, picked):
+        np.testing.assert_array_equal(sol.option_idx, oi)
+        np.testing.assert_array_equal(sol.start, s)
+        np.testing.assert_array_equal(sol.finish, f)
+        assert sol.makespan == float(f.max())
+        assert sol.cost == rsgs.schedule_cost(as_reference(prob), oi,
+                                              cluster.prices_per_sec)
